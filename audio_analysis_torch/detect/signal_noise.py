@@ -1,0 +1,174 @@
+"""Spectral signal detection and the end-of-data scan
+(the JAX package's detect/signal_noise.py, its fused detect program;
+reference src/identify_tracks.py:650-706, 387-413).
+
+For each recording of a [B, T] batch, on the device:
+
+1. end-scan: the 120-mel, power-1 spectrogram (n_fft = sr//10) of every
+   whole frame, through the ``stft_mel`` kernel; a ~1 s chunk whose max
+   equals its min marks the end of the data;
+2. samples past that end are zeroed and the |STFT| (n_fft 4096, hop 281)
+   runs through the ``stft_mag`` kernel;
+3. the spectrogram is divided by its max over the valid frames, and the
+   row and column medians come from the ``row_medians``/``col_medians``
+   kernels (exactly np.median);
+4. threshold at 3x both medians, then the morphology, with the invalid
+   region (frames past the data end) set to each operation's identity
+   between stages, as OpenCV sees the truncated recording.
+
+The mask is packed to bits on the device (1/8 of the bytes) and goes to
+the host once, where the native CCL labels it.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from audio_analysis_torch.detect.signal import Signal, SIGNAL_WIDTH
+from audio_analysis_torch.ops.components import connected_components_with_stats_packed
+from audio_analysis_torch.ops.mel import fft_frequencies
+from audio_analysis_torch.ops.medians import masked_medians_rowcol
+from audio_analysis_torch.ops.melspec import stft_mag, stft_mel
+from audio_analysis_torch.ops.morphology import dilate, erode
+
+ENDSCAN_MELS = 120
+
+
+def _to_float(frames: torch.Tensor) -> torch.Tensor:
+    """int16 PCM -> float32 in [-1, 1) (the 16-bit decode scaling,
+    reference src/common.py:92); float input passes through as float32."""
+    if frames.dtype == torch.int16:
+        return frames.to(torch.float32) / 32768.0
+    return frames.to(torch.float32)
+
+
+def _mask_height_width(sr, hop_length, n_fft):
+    """Structuring-element sizes: width = SIGNAL_WIDTH in frames; height =
+    1 + the first bin above 100 Hz (reference :656, 675-681)."""
+    width = int(SIGNAL_WIDTH * sr / hop_length)
+    height = 0
+    for i, f in enumerate(fft_frequencies(sr, n_fft)):
+        if f > 100:
+            height = i + 1
+            break
+    return height, width
+
+
+def _batch_chunk_flatness(framesf, *, sr, hop_length):
+    """[B, T] float PCM -> per-chunk (max, min) [B, C] of the 120-mel
+    power-1 end-scan spectrogram (reference src/identify_tracks.py:387-413).
+    Only the chunk decision max == min is consumed."""
+    b, t = framesf.shape
+    chunk = sr // hop_length
+    n_chunks = (1 + t // hop_length) // chunk
+    if n_chunks == 0:
+        # shorter than one chunk: a never-"checkable" sentinel (mx != mn)
+        return (
+            torch.zeros((b, 1), device=framesf.device),
+            torch.ones((b, 1), device=framesf.device),
+        )
+    mel = stft_mel(
+        framesf, sr=sr, n_fft=sr // 10, hop_length=hop_length, n_mels=ENDSCAN_MELS,
+        fmin=50.0, fmax=11000.0, break_freq=1750.0, power=1.0, htk=True,
+        frames=n_chunks * chunk,
+    )
+    usable = mel.reshape(b, ENDSCAN_MELS, n_chunks, chunk)
+    return usable.amax(dim=(1, 3)), usable.amin(dim=(1, 3))
+
+
+def _endscan_decision(n_valid, mx, mn, *, sr, hop_length):
+    """Per recording: (found, flat_sec, mask_valid samples) from the
+    per-chunk flatness; mask_valid is the detected data end."""
+    chunk = sr // hop_length
+    n_frames_valid = 1 + n_valid // hop_length  # [B]
+    k = torch.arange(mx.shape[1], device=mx.device)
+    checkable = (k[None, :] + 1) * chunk < n_frames_valid[:, None]
+    flat = (mx == mn) & checkable
+    found = flat.any(dim=1)
+    first = flat.to(torch.int32).argmax(dim=1)  # first True (0 if none)
+    flat_sec = (first * chunk * hop_length) // sr
+    mask_valid = torch.where(found, sr * flat_sec, n_valid)
+    return found, flat_sec, mask_valid
+
+
+def _mask_threshold_morph(spec, row_medians, column_medians, col_valid, *, sr,
+                          hop_length, n_fft):
+    """Median thresholds -> morphology over [B, bins, F]; `spec` is the
+    a_max-normalised magnitude, col_valid [B, F]. Returns a bool mask."""
+    cv = col_valid[:, None, :].to(spec.dtype)
+    inv = 1.0 - cv
+    mask = ((spec > 3 * column_medians) & (spec > 3 * row_medians)).to(spec.dtype) * cv
+    height, width = _mask_height_width(sr, hop_length, n_fft)
+    # MORPH_OPEN 4x4 == erode then dilate
+    u = erode(torch.maximum(mask, inv), 4, 4)
+    u = dilate(u * cv, 4, 4)
+    u = dilate(u * cv, height, width)
+    u = erode(torch.maximum(u, inv), height // 10, width)
+    return (u * cv) > 0.5
+
+
+def detect_batch_mask(frames, n_valid, *, sr, hop_length=281, n_fft=4096):
+    """[B, T] PCM (int16 or float) + valid lengths [B] -> (found [B],
+    flat_sec [B], mask [B, bins, F] bool), all on the frames' device."""
+    framesf = _to_float(frames)
+    n_valid = torch.as_tensor(n_valid, device=framesf.device).to(torch.int64)
+    mx, mn = _batch_chunk_flatness(framesf, sr=sr, hop_length=hop_length)
+    found, flat_sec, mask_valid = _endscan_decision(
+        n_valid, mx, mn, sr=sr, hop_length=hop_length
+    )
+    idx = torch.arange(framesf.shape[1], device=framesf.device)
+    fz = torch.where(idx[None, :] < mask_valid[:, None], framesf, 0.0).contiguous()
+    spec = stft_mag(fz, n_fft=n_fft, hop_length=hop_length, power=1.0)
+    nvf = 1 + mask_valid // hop_length  # valid frames [B]
+    col_valid = torch.arange(spec.shape[-1], device=spec.device)[None, :] < nvf[:, None]
+    a_max = torch.where(col_valid[:, None, :], spec, 0.0).amax(dim=(1, 2), keepdim=True)
+    spec_n = spec / a_max
+    row_m, col_m = masked_medians_rowcol(spec_n, nvf)
+    mask = _mask_threshold_morph(
+        spec_n, row_m, col_m, col_valid, sr=sr, hop_length=hop_length, n_fft=n_fft
+    )
+    return found, flat_sec, mask
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """[R, C] bool -> [R, ceil(C/8)] uint8, most significant bit first
+    (np.packbits' layout, which the native CCL reads)."""
+    r, c = mask.shape
+    w = -(-c // 8)
+    m = F.pad(mask.to(torch.uint8), (0, 8 * w - c)).reshape(r, w, 8)
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=mask.device)
+    return (m << shifts).sum(dim=-1, dtype=torch.uint8)
+
+
+def detect(frames, sr, n_valid_samples=None, hop_length=281, n_fft=4096):
+    """(length_seconds, signals) for one recording: a [T] tensor of int16
+    or float PCM on the device detection should run on.
+
+    Equivalent to the reference sequence length = get_end(...);
+    signals = signal_noise(frames[:int(sr*length)])."""
+    if n_valid_samples is None:
+        n_valid_samples = frames.shape[0]
+    found, flat_sec, mask = detect_batch_mask(
+        frames[None], [n_valid_samples], sr=sr, hop_length=hop_length, n_fft=n_fft
+    )
+    packed = pack_bits(mask[0]).cpu().numpy()
+    length = int(flat_sec[0]) if bool(found[0]) else n_valid_samples / sr
+    stats = connected_components_with_stats_packed(packed, mask.shape[-1])
+    return length, _signals_from_stats(stats, sr, hop_length, n_fft)
+
+
+def _signals_from_stats(stats, sr, hop_length, n_fft):
+    stats = sorted(stats.tolist(), key=lambda stat: stat[0])
+    height, width = _mask_height_width(sr, hop_length, n_fft)
+    freqs = fft_frequencies(sr, n_fft)
+    min_width = 0.65 * width
+    min_height = height - height // 10
+    stats = [s for s in stats if s[2] > min_width and s[3] > min_height]
+    signals = []
+    for s in stats:
+        max_freq = min(len(freqs) - 1, s[1] + s[3])
+        freq_range = (freqs[s[1]], freqs[max_freq])
+        start = s[0] * hop_length / sr
+        end = (s[0] + s[2]) * hop_length / sr
+        signals.append(Signal(start, end, freq_range[0], freq_range[1]))
+    return signals
+

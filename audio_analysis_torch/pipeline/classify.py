@@ -1,0 +1,235 @@
+"""Recording classification: the reference's ``classify``
+(src/identify_tracks.py:416-573) as a host orchestrator around the device
+work (the JAX package's pipeline/classify.py).
+
+Detection (end-scan, |STFT|, medians, morphology) runs on the device and
+one mask comes back for the host CCL. Then, per model group, every window
+of every track is gathered into one [n_windows, sample_size] grid, and the
+frontend, each model's forward pass, the ensemble mean and the per-track
+means run as one pass over that grid.
+"""
+
+import logging
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from audio_analysis_torch.detect.signal import (
+    MAX_FREQUENCY,
+    ModelResult,
+    Prediction,
+    Signal,
+    get_tracks_from_signals,
+)
+from audio_analysis_torch.detect.signal_noise import detect
+from audio_analysis_torch.device import resolve_device
+from audio_analysis_torch.io.audio import load_recording
+from audio_analysis_torch.io.modelconfig import ModelConfig
+from audio_analysis_torch.models.registry import load_classifier
+from audio_analysis_torch.pipeline.frontend import spectrogram_grid
+from audio_analysis_torch.pipeline.samples import (
+    gather_windows,
+    pad_plan_to_bucket,
+    plan_windows,
+)
+from audio_analysis_torch.utils.runtime import StageTimer
+
+
+def plan_for_config(length, sr, tracks, cfg: ModelConfig, rng=np.random):
+    """The one place a ModelConfig's planning knobs map onto plan_windows."""
+    return plan_windows(
+        int(length),
+        sr,
+        tracks,
+        cfg.segment_length,
+        cfg.segment_stride,
+        fmin=cfg.fmin,
+        fmax=cfg.fmax,
+        filter_freqs=cfg.filter_freq,
+        filter_below=cfg.filter_below,
+        pad_short_tracks=cfg.pad_short_tracks,
+        rng=rng,
+    )
+
+
+def features_for_config(grid, sr, cfg: ModelConfig):
+    """Frontend over the grid (reference get_spect semantics)."""
+    return spectrogram_grid(
+        grid,
+        sr=int(sr),
+        hop_length=int(cfg.hop_length),
+        n_fft=int(cfg.n_fft),
+        n_mels=int(cfg.n_mels),
+        mel_break=float(cfg.break_freq),
+        htk=bool(cfg.htk),
+        fmin=cfg.fmin,
+        fmax=cfg.fmax,
+        power=float(cfg.power),
+        db_scale=bool(cfg.db_scale),
+        normalize=bool(cfg.normalize),
+        mean_sub=bool(cfg.mean_sub),
+        use_mfcc=bool(cfg.use_mfcc),
+        channels=int(cfg.channels),
+    )
+
+
+def _track_means(per_window_probs, track_index, n_tracks):
+    """Mean over each track's windows (reference: np.mean(predictions,
+    axis=0) per track, :551). Windows indexed n_tracks (the bucket padding)
+    are summed apart and dropped, so their values never reach a track."""
+    seg = torch.as_tensor(np.asarray(track_index, np.int64), device=per_window_probs.device)
+    sums = torch.zeros(
+        (n_tracks + 1, per_window_probs.shape[1]), dtype=per_window_probs.dtype,
+        device=per_window_probs.device,
+    ).index_add_(0, seg, per_window_probs)
+    counts = torch.zeros(n_tracks + 1, dtype=per_window_probs.dtype,
+                         device=per_window_probs.device)
+    counts.index_add_(0, seg, torch.ones_like(seg, dtype=per_window_probs.dtype))
+    return sums[:n_tracks] / torch.clamp(counts[:n_tracks], min=1.0)[:, None]
+
+
+def classify(file, models, analyse_tracks, meta_data=None, rng=np.random, timer=None,
+             device=None):
+    """Reference-compatible entry: returns
+    (tracks, length, signals, raw_length, bird_labels)."""
+    timer = timer or StageTimer()
+    with timer.stage("decode"):
+        frames, sr = load_recording(file, prefer_int16=True)
+    return classify_frames(
+        frames, sr, models, analyse_tracks, meta_data, rng=rng, timer=timer, device=device
+    )
+
+
+@torch.inference_mode()
+def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.random,
+                    timer=None, device=None):
+    dev = resolve_device(device)
+    timer = timer or StageTimer()
+    raw_length = len(frames) / sr
+    frames_np = np.asarray(frames)
+    if frames_np.dtype != np.int16:
+        frames_np = frames_np.astype(np.float32)
+    # int16 PCM uploads at half the bytes and converts (/32768) on device
+    frames_dev = torch.from_numpy(np.ascontiguousarray(frames_np)).to(dev)
+    with timer.stage("detect"):
+        length, signals = detect(frames_dev, sr)
+
+    if analyse_tracks:
+        if meta_data is None:
+            return None
+        tracks = []
+        for t in meta_data["Tracks"]:
+            signal = Signal(
+                t["start"], t["end"], t.get("minFreq", 0), t.get("maxFreq", MAX_FREQUENCY)
+            )
+            signal.track_id = t["id"]
+            tracks.append(signal)
+    else:
+        tracks = [s.copy() for s in signals]
+        tracks = get_tracks_from_signals(tracks, length)
+    if len(tracks) == 0:
+        return [], length, [], raw_length, []
+
+    # group models: pre-filter models run after the main ensemble group
+    # (reference :444-455)
+    pre_models, mean_models = [], []
+    for model_file in models:
+        cfg = ModelConfig.load(Path(model_file))
+        if cfg.pre_model:
+            pre_models.append((model_file, cfg))
+        else:
+            mean_models.append((model_file, cfg))
+    grouped_models = [mean_models]
+    if pre_models:
+        grouped_models.append(pre_models)
+
+    track_data = None  # (plan, has_windows) shared across groups like the reference
+    feats_cache = None  # the first group's features, reused verbatim
+    bird_labels = set()
+
+    for model_group in grouped_models:
+        if not model_group:
+            continue
+        if len(model_group) > 1:
+            logging.info("Meaning predictions as have multiple models")
+        predict_models = [
+            (load_classifier(Path(mf), cfg, dev), cfg) for mf, cfg in model_group
+        ]
+        cfg = predict_models[0][1]
+        bird_labels.update(cfg.bird_labels)
+
+        if cfg.name == "embeddings":
+            raise NotImplementedError(
+                "embeddings model groups are not ported yet (ROADMAP Queue 1, item 10)"
+            )
+
+        if track_data is None:
+            plan = plan_for_config(frames_dev.shape[-1], sr, tracks, cfg, rng=rng)
+            has_windows = len(plan.base) > 0
+            track_data = (pad_plan_to_bucket(plan), has_windows, cfg)
+        else:
+            logging.info(
+                "Re using track data this will cuase problems if the STFT "
+                "settings are not the same for multiple models"
+            )
+        plan, has_windows, feat_cfg = track_data
+        if not has_windows:
+            # every track is out of the model's band: skip inference for THIS
+            # group, keep iterating so later groups add their bird_labels
+            # (src/identify_tracks.py:494, 537-538)
+            continue
+        if plan.filter_specs:
+            raise NotImplementedError(
+                "band-pass filtered tracks are not ported yet (ROADMAP Queue 1, item 9)"
+            )
+
+        with timer.stage("infer"):
+            if feats_cache is None:
+                # like the reference's ``data = track_data`` (:525-528): later
+                # groups reuse the FIRST group's features verbatim
+                framesf = frames_dev.to(torch.float32)
+                if frames_dev.dtype == torch.int16:
+                    framesf = framesf / 32768.0
+                feats_cache = features_for_config(gather_windows(framesf, plan), sr, feat_cfg)
+            feats = feats_cache
+            if cfg.is_efficientnet:
+                # the 3-channel repeat follows the CURRENT group (:539-540)
+                feats = feats.repeat_interleave(3, dim=-1)
+            probs = None
+            for model, _ in predict_models:
+                p = model(feats)
+                probs = p if probs is None else probs + p
+            probs = probs / len(predict_models)
+            track_probs = _track_means(probs, plan.track_index, plan.n_tracks).cpu().numpy()
+
+        windows_per_track = np.bincount(plan.track_index, minlength=plan.n_tracks)
+        apply_thresholds(tracks, track_probs, windows_per_track, cfg)
+
+    return tracks, length, signals, raw_length, list(bird_labels)
+
+
+def apply_thresholds(tracks, track_probs, windows_per_track, cfg: ModelConfig):
+    """Turn per-track mean probabilities into Prediction/ModelResult objects
+    (reference: src/identify_tracks.py:553-571): labels above threshold keep
+    their ebird ids; otherwise the argmax becomes a raw below-threshold
+    prediction."""
+    labels = cfg.labels
+    ebird_ids = cfg.ebird_ids
+    prob_thresh = cfg.threshold
+    for ti, t in enumerate(tracks):
+        if windows_per_track[ti] == 0:
+            continue  # skipped/out-of-band track (reference :537-538)
+        prediction = track_probs[ti]
+        max_p = None
+        result = ModelResult(cfg.name, cfg.pre_model)
+        t.results.append(result)
+        for i, p in enumerate(prediction):
+            if max_p is None or p > max_p[1]:
+                max_p = (i, p)
+            if p >= prob_thresh:
+                ebird_id = ebird_ids[i] if ebird_ids is not None else None
+                result.add_prediction(labels[i], p, ebird_id, prob_thresh)
+        if len(result.predictions) == 0:
+            ebird_id = ebird_ids[max_p[0]] if ebird_ids is not None else None
+            result.raw_prediction = Prediction(labels[max_p[0]], max_p[1], ebird_id)
