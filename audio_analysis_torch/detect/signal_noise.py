@@ -5,8 +5,9 @@ reference src/identify_tracks.py:650-706, 387-413).
 For each recording of a [B, T] batch, on the device:
 
 1. end-scan: the 120-mel, power-1 spectrogram (n_fft = sr//10) of every
-   whole frame, through the ``stft_mel`` kernel; a ~1 s chunk whose max
-   equals its min marks the end of the data;
+   whole frame, through the frontend level's DFT -> mel kernel
+   (``stft_mel``, or ``stft_mel_bf16`` at the fast level); a ~1 s chunk
+   whose max equals its min marks the end of the data;
 2. samples past that end are zeroed and the |STFT| (n_fft 4096, hop 281)
    runs through the ``stft_mag`` kernel;
 3. the spectrogram is divided by its max over the valid frames, and the
@@ -17,18 +18,28 @@ For each recording of a [B, T] batch, on the device:
    between stages, as OpenCV sees the truncated recording.
 
 The mask is packed to bits on the device (1/8 of the bytes) and goes to
-the host once, where the native CCL labels it.
+the host once, where the native CCL labels it. ``detect_batch_dispatch``
+queues all of that for a batch, the copies included, without waiting for
+the device: on a CUDA device the copies go through pinned host memory,
+asynchronously, and an event marks their end. ``detect_batch_finish``
+waits for that event only, so work queued after the dispatch (the next
+batch) does not hold it, and labels each recording in a host thread.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from audio_analysis_torch.detect.signal import Signal, SIGNAL_WIDTH
+from audio_analysis_torch.device import to_device_async, to_host_async
 from audio_analysis_torch.ops.components import connected_components_with_stats_packed
 from audio_analysis_torch.ops.mel import fft_frequencies
 from audio_analysis_torch.ops.medians import masked_medians_rowcol
-from audio_analysis_torch.ops.melspec import stft_mag, stft_mel
+from audio_analysis_torch.ops.melspec import stft_mag
 from audio_analysis_torch.ops.morphology import dilate, erode
+from audio_analysis_torch.pipeline.frontend import dft_mel, frontend_level
 
 ENDSCAN_MELS = 120
 
@@ -53,10 +64,15 @@ def _mask_height_width(sr, hop_length, n_fft):
     return height, width
 
 
-def _batch_chunk_flatness(framesf, *, sr, hop_length):
+def _batch_chunk_flatness(framesf, *, sr, hop_length, level=None):
     """[B, T] float PCM -> per-chunk (max, min) [B, C] of the 120-mel
     power-1 end-scan spectrogram (reference src/identify_tracks.py:387-413).
-    Only the chunk decision max == min is consumed."""
+
+    Only the chunk decision max == min is consumed, and every faithful DFT
+    agrees on it: digital silence is exactly zero at either level, and
+    nonzero input puts unequal energy in different bins, so the ``fast``
+    level (None resolves the frontend level now) gives the same decisions
+    as ``exact``."""
     b, t = framesf.shape
     chunk = sr // hop_length
     n_chunks = (1 + t // hop_length) // chunk
@@ -66,7 +82,7 @@ def _batch_chunk_flatness(framesf, *, sr, hop_length):
             torch.zeros((b, 1), device=framesf.device),
             torch.ones((b, 1), device=framesf.device),
         )
-    mel = stft_mel(
+    mel = dft_mel(frontend_level() if level is None else level)(
         framesf, sr=sr, n_fft=sr // 10, hop_length=hop_length, n_mels=ENDSCAN_MELS,
         fmin=50.0, fmax=11000.0, break_freq=1750.0, power=1.0, htk=True,
         frames=n_chunks * chunk,
@@ -106,12 +122,14 @@ def _mask_threshold_morph(spec, row_medians, column_medians, col_valid, *, sr,
     return (u * cv) > 0.5
 
 
-def detect_batch_mask(frames, n_valid, *, sr, hop_length=281, n_fft=4096):
+def detect_batch_mask(frames, n_valid, *, sr, hop_length=281, n_fft=4096, level=None):
     """[B, T] PCM (int16 or float) + valid lengths [B] -> (found [B],
-    flat_sec [B], mask [B, bins, F] bool), all on the frames' device."""
+    flat_sec [B], mask [B, bins, F] bool), all on the frames' device.
+    ``level`` is the end-scan's frontend level (None: resolved now); the
+    |STFT| and the medians are exact at every level."""
     framesf = _to_float(frames)
     n_valid = torch.as_tensor(n_valid, device=framesf.device).to(torch.int64)
-    mx, mn = _batch_chunk_flatness(framesf, sr=sr, hop_length=hop_length)
+    mx, mn = _batch_chunk_flatness(framesf, sr=sr, hop_length=hop_length, level=level)
     found, flat_sec, mask_valid = _endscan_decision(
         n_valid, mx, mn, sr=sr, hop_length=hop_length
     )
@@ -139,21 +157,60 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     return (m << shifts).sum(dim=-1, dtype=torch.uint8)
 
 
-def detect(frames, sr, n_valid_samples=None, hop_length=281, n_fft=4096):
+def detect_batch_dispatch(frames, n_valid, sr, hop_length=281, n_fft=4096, level=None):
+    """Queue detection for a [B, T] batch of int16 or float PCM on the
+    device (``n_valid`` [B] valid samples per recording): the end-scan, the
+    masks, their packing to bits and the copy of the packed masks to the
+    host. Returns a handle without waiting for the device."""
+    n_valid = np.asarray(n_valid, dtype=np.int64).reshape(-1)
+    found, flat_sec, mask = detect_batch_mask(
+        frames, to_device_async(torch.from_numpy(n_valid), frames.device), sr=sr,
+        hop_length=hop_length, n_fft=n_fft, level=level,
+    )
+    b, bins, width = mask.shape
+    packed = pack_bits(mask.reshape(b * bins, width)).reshape(b, bins, -1)
+    host = [to_host_async(x) for x in (found, flat_sec, packed)]
+    copied = None
+    if frames.device.type == "cuda":
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(frames.device))
+    return host, copied, width, n_valid, sr, hop_length, n_fft
+
+
+def detect_batch_finish(handle):
+    """[(length_seconds, signals), ...] for a dispatched batch: wait for its
+    copy of the packed masks to the host, then run the native CCL of each
+    recording in a host thread (the C++ labelling releases the GIL)."""
+    host, copied, width, n_valid, sr, hop_length, n_fft = handle
+    if copied is not None:
+        copied.synchronize()
+    found, flat_sec, packed = (x.numpy() for x in host)
+    b = len(n_valid)
+
+    def one(i):
+        stats = connected_components_with_stats_packed(packed[i], width)
+        return _signals_from_stats(stats, sr, hop_length, n_fft)
+
+    with ThreadPoolExecutor(max_workers=max(1, min(8, b))) as ex:
+        signals = list(ex.map(one, range(b)))
+    return [
+        (int(flat_sec[i]) if found[i] else float(n_valid[i]) / sr, signals[i])
+        for i in range(b)
+    ]
+
+
+def detect(frames, sr, n_valid_samples=None, hop_length=281, n_fft=4096, level=None):
     """(length_seconds, signals) for one recording: a [T] tensor of int16
-    or float PCM on the device detection should run on.
+    or float PCM on the device detection should run on; a batch of one
+    through ``detect_batch_dispatch`` and ``detect_batch_finish``.
 
     Equivalent to the reference sequence length = get_end(...);
     signals = signal_noise(frames[:int(sr*length)])."""
     if n_valid_samples is None:
         n_valid_samples = frames.shape[0]
-    found, flat_sec, mask = detect_batch_mask(
-        frames[None], [n_valid_samples], sr=sr, hop_length=hop_length, n_fft=n_fft
-    )
-    packed = pack_bits(mask[0]).cpu().numpy()
-    length = int(flat_sec[0]) if bool(found[0]) else n_valid_samples / sr
-    stats = connected_components_with_stats_packed(packed, mask.shape[-1])
-    return length, _signals_from_stats(stats, sr, hop_length, n_fft)
+    return detect_batch_finish(detect_batch_dispatch(
+        frames[None], [n_valid_samples], sr, hop_length=hop_length, n_fft=n_fft, level=level
+    ))[0]
 
 
 def _signals_from_stats(stats, sr, hop_length, n_fft):

@@ -8,6 +8,9 @@ TF32 is switched off for both matmuls and cuDNN convolutions: the detection
 mask flips bits at relative errors of about 5e-5 (the JAX package's
 CLAUDE.md, "Mag exact1-vs-exact2 MEASURED OUT"), and TF32 keeps only about
 three decimal digits, so every float32 product here stays full float32.
+
+``to_device_async`` and ``to_host_async`` copy between the host and the card
+without waiting for the card's queue, through pinned host memory.
 """
 
 import torch
@@ -27,3 +30,25 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def to_device_async(x: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device`` without waiting for the device's queue (a
+    pageable copy to a CUDA device waits for the queue to drain): a CUDA
+    copy is staged in pinned memory and queued. Pass a pinned ``x`` to skip
+    the staging copy."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return x.to(device)
+    if not x.is_pinned():
+        x = x.pin_memory()
+    return x.to(device, non_blocking=True)
+
+
+def to_host_async(x: torch.Tensor) -> torch.Tensor:
+    """A device tensor's copy to pinned host memory, queued; valid once the
+    device has passed the copy (wait on an event recorded after it)."""
+    if x.device.type != "cuda":
+        return x
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return out.copy_(x, non_blocking=True)

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("stft.cu", "medians.cu")
+SOURCES = ("stft.cu", "stft_bf16.cu", "medians.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libaat_kernels.so"
@@ -35,6 +35,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
     "aat_stft_mel": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _F, _P],
     "aat_stft_mag": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _F, _P],
+    "aat_stft_mel_bf16": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "aat_row_medians": [_P, _P, _P, _I, _I, _I, _P],
     "aat_col_medians": [_P, _P, _I, _I, _I, _P],
 }

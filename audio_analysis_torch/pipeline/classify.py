@@ -6,7 +6,9 @@ Detection (end-scan, |STFT|, medians, morphology) runs on the device and
 one mask comes back for the host CCL. Then, per model group, every window
 of every track is gathered into one [n_windows, sample_size] grid, and the
 frontend, each model's forward pass, the ensemble mean and the per-track
-means run as one pass over that grid.
+means run as one pass over that grid (``run_group``, which batch serving
+shares). The frontend level (``frontend_level``) is resolved once per
+recording and holds for its end-scan and its classify frontend.
 """
 
 import logging
@@ -27,7 +29,7 @@ from audio_analysis_torch.device import resolve_device
 from audio_analysis_torch.io.audio import load_recording
 from audio_analysis_torch.io.modelconfig import ModelConfig
 from audio_analysis_torch.models.registry import load_classifier
-from audio_analysis_torch.pipeline.frontend import spectrogram_grid
+from audio_analysis_torch.pipeline.frontend import frontend_level, spectrogram_grid
 from audio_analysis_torch.pipeline.samples import (
     gather_windows,
     pad_plan_to_bucket,
@@ -53,10 +55,12 @@ def plan_for_config(length, sr, tracks, cfg: ModelConfig, rng=np.random):
     )
 
 
-def features_for_config(grid, sr, cfg: ModelConfig):
-    """Frontend over the grid (reference get_spect semantics)."""
+def features_for_config(grid, sr, cfg: ModelConfig, level=None):
+    """Frontend over the grid (reference get_spect semantics) at ``level``
+    (None: the frontend level resolved now)."""
     return spectrogram_grid(
         grid,
+        level=level,
         sr=int(sr),
         hop_length=int(cfg.hop_length),
         n_fft=int(cfg.n_fft),
@@ -89,6 +93,34 @@ def _track_means(per_window_probs, track_index, n_tracks):
     return sums[:n_tracks] / torch.clamp(counts[:n_tracks], min=1.0)[:, None]
 
 
+def run_group(models, feat_cfg, frames_flat, padded_plan, n_tracks, is_efficientnet, *,
+              sr, level=None, feats=None):
+    """One model group over a window plan, on the frames' device: window
+    gather -> frontend (``feat_cfg``'s settings, at ``level``) -> every
+    model -> ensemble mean -> per-track means [n_tracks, n_labels].
+
+    ``frames_flat`` is [T] int16 or float PCM (a batch's recordings laid end
+    to end); plan windows with track index ``n_tracks`` are bucket padding
+    and are dropped. ``feats`` reuses an earlier group's features: the
+    reference feeds the first group's features to every later group
+    verbatim (src/identify_tracks.py:525-528), and only the EfficientNet
+    3-channel repeat follows the current group (:539-540). Returns
+    (track means, features)."""
+    if feats is None:
+        framesf = frames_flat.to(torch.float32)
+        if frames_flat.dtype == torch.int16:
+            framesf = framesf / 32768.0
+        feats = features_for_config(gather_windows(framesf, padded_plan), sr, feat_cfg,
+                                    level=level)
+    x = feats.repeat_interleave(3, dim=-1) if is_efficientnet else feats
+    probs = None
+    for model in models:
+        p = model(x)
+        probs = p if probs is None else probs + p
+    probs = probs / len(models)
+    return _track_means(probs, padded_plan.track_index, n_tracks), feats
+
+
 def classify(file, models, analyse_tracks, meta_data=None, rng=np.random, timer=None,
              device=None):
     """Reference-compatible entry: returns
@@ -106,6 +138,7 @@ def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.r
                     timer=None, device=None):
     dev = resolve_device(device)
     timer = timer or StageTimer()
+    level = frontend_level()  # one level for the whole recording
     raw_length = len(frames) / sr
     frames_np = np.asarray(frames)
     if frames_np.dtype != np.int16:
@@ -113,7 +146,7 @@ def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.r
     # int16 PCM uploads at half the bytes and converts (/32768) on device
     frames_dev = torch.from_numpy(np.ascontiguousarray(frames_np)).to(dev)
     with timer.stage("detect"):
-        length, signals = detect(frames_dev, sr)
+        length, signals = detect(frames_dev, sr, level=level)
 
     if analyse_tracks:
         if meta_data is None:
@@ -185,23 +218,13 @@ def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.r
             )
 
         with timer.stage("infer"):
-            if feats_cache is None:
-                # like the reference's ``data = track_data`` (:525-528): later
-                # groups reuse the FIRST group's features verbatim
-                framesf = frames_dev.to(torch.float32)
-                if frames_dev.dtype == torch.int16:
-                    framesf = framesf / 32768.0
-                feats_cache = features_for_config(gather_windows(framesf, plan), sr, feat_cfg)
-            feats = feats_cache
-            if cfg.is_efficientnet:
-                # the 3-channel repeat follows the CURRENT group (:539-540)
-                feats = feats.repeat_interleave(3, dim=-1)
-            probs = None
-            for model, _ in predict_models:
-                p = model(feats)
-                probs = p if probs is None else probs + p
-            probs = probs / len(predict_models)
-            track_probs = _track_means(probs, plan.track_index, plan.n_tracks).cpu().numpy()
+            # like the reference's ``data = track_data`` (:525-528): later
+            # groups reuse the FIRST group's features verbatim
+            track_probs, feats_cache = run_group(
+                [m for m, _ in predict_models], feat_cfg, frames_dev, plan, plan.n_tracks,
+                cfg.is_efficientnet, sr=sr, level=level, feats=feats_cache,
+            )
+            track_probs = track_probs.cpu().numpy()
 
         windows_per_track = np.bincount(plan.track_index, minlength=plan.n_tracks)
         apply_thresholds(tracks, track_probs, windows_per_track, cfg)

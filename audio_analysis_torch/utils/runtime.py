@@ -1,5 +1,6 @@
-"""Stage timing and environment flags (host-only copy of the JAX
-package's utils/runtime.py, without its XLA compilation cache)."""
+"""Stage timing, environment flags and the process's resident set
+(host-only copy of the JAX package's utils/runtime.py, without its XLA
+compilation cache)."""
 
 import os
 import time
@@ -12,6 +13,27 @@ def env_flag(name):
     if v is None or v == "":
         return None
     return v.lower() in ("1", "true", "on", "yes")
+
+
+def fast_mode() -> bool:
+    """AAT_FAST=1 — the throughput preset: the bf16 tensor-core frontend
+    (``pipeline/frontend.py::frontend_level``). Individual knobs
+    (AAT_PALLAS) override the preset in either direction. Read at call time
+    so a warm process can A/B."""
+    return bool(env_flag("AAT_FAST"))
+
+
+def rss_mb() -> float:
+    """This process's resident set in MB (0.0 where /proc is unreadable):
+    the batch daemon's --recycle-rss-mb check."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return int(line.split()[1]) / 1024.0
+    except OSError:
+        pass
+    return 0.0
 
 
 class StageTimer:

@@ -4,24 +4,41 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit, and the torch/CUDA versions;
-2. builds the CUDA kernels from audio_analysis_torch/csrc (nvcc, sm_90a);
-3. writes two fixtures into a temporary directory: a seeded 60 s, 48 kHz,
+2. builds the CUDA kernels from audio_analysis_torch/csrc (one nvcc per
+   source, all started together; sm_90a);
+3. writes fixtures into a temporary directory: a seeded 60 s, 48 kHz,
    16-bit WAV (noise and chirps, then a digitally silent tail that the
-   end-scan finds) and a full-width TuiNet model dir (160 mels; channels
-   64/128/256, stem 32, dense 256; float32) with weights drawn from a seed;
+   end-scan finds), a full-width float32 TuiNet model dir (160 mels;
+   channels 64/128/256, stem 32, dense 256) with weights drawn from a seed,
+   24 more seeded 60 s WAVs with silent tails at different points (some
+   with none), and two full-width TuiNet dirs at TuiNet's default bfloat16
+   (a bird model with 8 labels and a pre-model with 3);
 4. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it and on the fixture's data, and times the
+   shapes the main paths give it and on the fixtures' data, and times the
    kernel, the plain version and, where one exists, a single PyTorch call
    computing the same function (CUDA events);
-5. runs the port's CLI (``analyse -o FILE --bird-model DIR --seed 0``)
-   in this process on the card, cold and then warm, with every kernel's
-   launch count set to 0 just before and read just after each run, then
-   once more under torch.profiler (device busy time, idle share, device
-   time by kernel);
-6. reproduces the committed golden snapshot on the card, and runs the CLI
+5. the exact level's single-recording path: runs the port's CLI
+   (``analyse -o FILE --bird-model DIR --seed 0``) in this process on the
+   card, cold and then warm, with every kernel's launch count set to 0 just
+   before and read just after each run, then once more under
+   torch.profiler (device busy time, idle share, device time by kernel);
+   reproduces the committed golden snapshot on the card, and runs the CLI
    once more with ``--device cpu`` (the plain versions) and requires the
    card's result to equal it: signals, length, chirps, cacophony index and
    labels identical, confidences within 1;
+6. the fast level's batch path: runs the batch CLI (``AAT_FAST=1``,
+   ``batch -o --bird-model B --bird-model PRE --batch-size 8 --seed 0`` on
+   the first eight WAVs) cold and then warm with the counts reset around each
+   run, requires stft_mel_bf16 twice per batch and stft_mel never, prints
+   the wall time, audio seconds per second and stage times, and holds
+   stft_mel_bf16 against its plain version on the inputs the cold batch
+   gave it (the [8, T] end-scan and the batch's padded classify grid);
+   then runs a backlog of 24 WAVs (three batches through the pipelined
+   stream) and prints its audio seconds per second over the whole run,
+   profiles one more warm batch, and runs the first four WAVs with
+   ``--device cpu`` and requires the card's results to equal them
+   (confidences within 2: the bf16 TuiNet's convolutions round at other
+   places on cuDNN and the CPU);
 7. prints one JSON line describing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -47,6 +64,10 @@ SECONDS = 60
 SILENT_FROM = 52.0  # seconds; the rest of the recording is digital silence
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+BATCH_SILENT_FROM = (52.0, 60.0, 45.0, 57.5, 60.0, 49.0, 41.0, 55.0)  # 60.0: no tail
+BACKLOG = 24  # recordings in the backlog run: three batches of 8
+PRE_LABELS = ["bird", "human", "noise"]
 REPO = Path(__file__).resolve().parent
 GOLDEN_MODEL = REPO / "tests" / "data" / "golden_model"
 GOLDEN_SNAPSHOT = REPO / "tests" / "data" / "golden_snapshot.json"
@@ -96,9 +117,11 @@ def golden_recording():
 
 
 def write_tuinet_model(model_dir, seed=0, channels=(64, 128, 256), stem=32, dense=256,
-                       n_mels=160, labels=LABELS):
+                       n_mels=160, labels=LABELS, **meta_overrides):
     """metadata.txt + weights.npz in the JAX package's layout (HWIO convs),
-    weights drawn from a numpy seed (He-normal, BN statistics perturbed)."""
+    weights drawn from a numpy seed (He-normal, BN statistics perturbed).
+    ``meta_overrides`` update the metadata; a None value removes the key
+    (``net_dtype=None`` leaves TuiNet's default, bfloat16)."""
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
     meta = {
@@ -109,6 +132,8 @@ def write_tuinet_model(model_dir, seed=0, channels=(64, 128, 256), stem=32, dens
         "net_dtype": "float32", "net_channels": list(channels),
         "net_stem_channels": stem, "net_dense_units": dense,
     }
+    meta.update(meta_overrides)
+    meta = {k: v for k, v in meta.items() if v is not None}
     (model_dir / "metadata.txt").write_text(json.dumps(meta, indent=4, sort_keys=True))
     rng = np.random.RandomState(seed)
     f32 = lambda a: np.asarray(a, np.float32)
@@ -132,16 +157,18 @@ def write_tuinet_model(model_dir, seed=0, channels=(64, 128, 256), stem=32, dens
     return model_dir
 
 
-def compare_results(a, b):
+def compare_results(a, b, confidence_tol=1):
     """The contract between two result JSONs of one recording: signals,
     duration, chirps, cacophony index and every track's box and labels
-    identical, confidences within 1. Raises AssertionError naming the
-    first difference."""
+    identical, confidences within ``confidence_tol``. Raises AssertionError
+    naming the first difference; returns the largest confidence
+    difference."""
     for k in ("duration", "chirps", "cacophony_index", "cacophony_index_version",
               "non_bird_tags", "species_identify_version"):
         if a.get(k) != b.get(k):
             raise AssertionError(f"{k} differs: {a.get(k)!r} vs {b.get(k)!r}")
     ta, tb = a["species_identify"], b["species_identify"]
+    worst = 0
     if len(ta) != len(tb):
         raise AssertionError(f"{len(ta)} vs {len(tb)} tracks")
     for i, (x, y) in enumerate(zip(ta, tb)):
@@ -156,12 +183,14 @@ def compare_results(a, b):
         if [(m, p["label"]) for m, p in pa] != [(m, p["label"]) for m, p in pb]:
             raise AssertionError(f"track {i} labels differ: {pa} vs {pb}")
         for (_, p), (_, q) in zip(pa, pb):
-            if abs(p["confidence"] - q["confidence"]) > 1:
+            worst = max(worst, abs(p["confidence"] - q["confidence"]))
+            if abs(p["confidence"] - q["confidence"]) > confidence_tol:
                 raise AssertionError(f"track {i} confidence {p} vs {q}")
         ma = x.get("master_tag", {}).get("prediction", {}).get("label")
         mb = y.get("master_tag", {}).get("prediction", {}).get("label")
         if ma != mb:
             raise AssertionError(f"track {i} master tag {ma} vs {mb}")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -338,12 +367,119 @@ def check_kernels(pcm):
     return res
 
 
+def bf16_entry(name, x, kw):
+    """stft_mel_bf16 against its plain version on the card on windows `x`
+    [N, S] with keyword arguments `kw`; returns its measurement. Rows of
+    `x` that are not finite are the padding of a window grid (all-zero
+    audio normalises to NaN, as in the reference; the per-track means drop
+    them) and are left out of the comparison."""
+    import torch
+
+    from audio_analysis_torch.ops import melspec as ms
+    from audio_analysis_torch.ops.mel import filterbank_np
+
+    got = ms.stft_mel_bf16(x, **kw)
+    ref = ms.stft_mel_bf16_plain(x, **kw)
+    torch.cuda.synchronize()
+    rows = torch.isfinite(x).all(dim=1)
+    g, r = got[rows], ref[rows]
+    if got.shape != ref.shape or not len(g) or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}, "
+                             f"{len(g)} finite rows, or non-finite output")
+    rel = max_rel(g, r)
+    if not rel <= 1e-2:
+        raise AssertionError(f"{name}: max rel {rel:.3g} vs its plain version (limit 1e-2)")
+    n, s = x.shape
+    n_fft, n_mels, frames = kw["n_fft"], kw["n_mels"], got.shape[-1]
+    nnz = int((filterbank_np(kw["sr"], n_mels, kw["fmin"], kw["fmax"], n_fft,
+                             kw["break_freq"], kw.get("htk", True)) != 0).sum())
+    byte_ms = (n * s + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+    op_ms = n * frames * (fft_flops(n_fft) + 2 * nnz) / BF16_FLOPS * 1e3
+    m = dict(
+        name=name, route="cuda", source="audio_analysis_torch/csrc/stft_bf16.cu",
+        replaces="audio_analysis_tpu/ops/pallas/melspec.py:98 (_kernel)",
+        max_abs_err=float((g.double() - r.double()).abs().max()), max_rel=rel,
+        ms=time_ms(lambda: ms.stft_mel_bf16(x, **kw), 10),
+        plain_ms=time_ms(lambda: ms.stft_mel_bf16_plain(x, **kw), 3), library_ms=None,
+        bound_ms=max(byte_ms, op_ms), bound_by="bytes" if byte_ms >= op_ms else "operations",
+        shape=list(got.shape), rows_compared=int(rows.sum()),
+    )
+    log(json.dumps(m))
+    return m
+
+
+def check_bf16(pcm):
+    """stft_mel_bf16 against its plain version on the card, at the slice's
+    shapes and where the JAX package takes ``_kernel`` (more than 320
+    frames a window, n_fft % 8 != 0); returns {name: measurement}."""
+    import torch
+
+    from audio_analysis_torch.ops.scale import normalize_minmax
+
+    y = torch.from_numpy(pcm).to(torch.device("cuda"))
+    t = y.shape[0]
+    chunk = SR // 281
+    n_keep = ((1 + t // 281) // chunk) * chunk
+
+    def windows(n, sample):
+        """n normalised windows of the recording's sound."""
+        bases = np.arange(n) * ((int(SILENT_FROM * SR) - sample) // n)
+        return normalize_minmax(torch.stack([y[b : b + sample] for b in bases])).contiguous()
+
+    cls = dict(sr=SR, n_fft=4096, hop_length=640, n_mels=160, fmin=50.0, fmax=11000.0,
+               break_freq=1750.0, power=2.0)
+    shapes = {
+        "classify": (windows(64, 3 * SR), cls),
+        "end-scan": (y[None], dict(sr=SR, n_fft=SR // 10, hop_length=281, n_mels=120, fmin=50.0,
+                                   fmax=11000.0, break_freq=1750.0, power=1.0, frames=n_keep)),
+        "long": (windows(16, int(4.5 * SR)), cls),
+        "nfft500": (windows(16, 16000), dict(sr=16000, n_fft=500, hop_length=125, n_mels=40,
+                                             fmin=50.0, fmax=7000.0, break_freq=1750.0,
+                                             power=2.0)),
+    }
+    return {f"stft_mel_bf16[{tag}]": bf16_entry(f"stft_mel_bf16[{tag}]", x, kw)
+            for tag, (x, kw) in shapes.items()}
+
+
+@contextlib.contextmanager
+def capture_bf16(captured):
+    """Within the block, record a copy of the first input of each kind that
+    the frontend passes to stft_mel_bf16 (``batch end-scan``: the call with
+    a ``frames`` prefix; ``batch classify``: the window grid) into
+    `captured` {tag: (windows, kwargs)}. The kernel still runs, and counts,
+    once per call."""
+    from audio_analysis_torch.pipeline import frontend
+
+    kernel = frontend.stft_mel_bf16
+
+    def recording(windows, **kw):
+        tag = "batch end-scan" if kw.get("frames") is not None else "batch classify"
+        captured.setdefault(tag, (windows.clone(), dict(kw)))
+        return kernel(windows, **kw)
+
+    frontend.stft_mel_bf16 = recording
+    try:
+        yield captured
+    finally:
+        frontend.stft_mel_bf16 = kernel
+
+
 def counters():
     from audio_analysis_torch.ops import medians as md
     from audio_analysis_torch.ops import melspec as ms
 
     return {"stft_mel": ms.stft_mel, "stft_mag": ms.stft_mag,
-            "row_medians": md.row_medians, "col_medians": md.col_medians}
+            "row_medians": md.row_medians, "col_medians": md.col_medians,
+            "stft_mel_bf16": ms.stft_mel_bf16}
+
+
+def require_launches(tag, launches, expect):
+    """`expect` maps a kernel to its least count on the path; 0 means the
+    path must not launch it at all."""
+    bad = {k: launches[k] for k, least in expect.items()
+           if (launches[k] < least if least else launches[k] != 0)}
+    if bad:
+        raise AssertionError(f"{tag}: launches {launches}, expected {expect}")
 
 
 def run_cli(wav, model_dir, device):
@@ -366,16 +502,47 @@ def run_cli(wav, model_dir, device):
     return json.loads(buf.getvalue()), wall, launches
 
 
-def profile_run(wav, model_dir, device="cuda"):
-    """One more warm CLI run under torch.profiler: device busy time (the
-    union of the device's kernel intervals) against the run's wall time,
-    and device time by kernel name."""
+def run_batch_cli(wavs, models, device, timer=None):
+    """One batch CLI run in this process (``--batch-size 8 --seed 0``), its
+    stages added into `timer` (a StageTimer) when given; returns (result
+    JSON list, wall seconds, launches per kernel)."""
+    import torch
+
+    from audio_analysis_torch.cli.batch import run
+
+    for w in counters().values():
+        w.launches = 0
+    argv = ["-o", "--batch-size", "8", "--seed", "0", "--device", device]
+    for m in models:
+        argv += ["--bird-model", str(m)]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run(argv + [str(w) for w in wavs], timer=timer)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counters().items()}
+    return json.loads(buf.getvalue()), wall, launches
+
+
+def without_times(results):
+    """Batch results without their wall-clock field."""
+    return [{"file": r["file"], "analysis": {
+        k: v for k, v in r["analysis"].items() if k != "processing_time_seconds"
+    }} for r in results]
+
+
+def profile_run(run):
+    """One more warm run (``run()`` returns (result, wall, launches)) under
+    torch.profiler: device busy time (the union of the device's kernel
+    intervals) against the run's wall time, and device time by kernel
+    name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
-    with profile(activities=acts) as prof:
-        _, wall, _ = run_cli(wav, model_dir, device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall, _ = run()
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
@@ -481,25 +648,30 @@ def main():
 
         t0 = time.perf_counter()
         kernels = check_kernels(pcm)
+        kernels.update(check_bf16(pcm))
         log(f"kernel checks done in {time.perf_counter() - t0:.1f} s")
 
+        # the exact level's single-recording path
         os.environ["AAT_TIMINGS"] = "1"
+        for knob in ("AAT_FAST", "AAT_PALLAS"):
+            os.environ.pop(knob, None)
+        exact_path = {"stft_mel": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
+                      "stft_mel_bf16": 0}
         runs = {}
         for tag in ("cold", "warm"):
             res, wall, launches = run_cli(wav, model_dir, "cuda")
             runs[tag] = (res, launches)
             log(json.dumps({"cli_run": tag, "device": "cuda", "wall_s": wall,
                             "launches": launches, **summary_of(res)}))
-            missing = [k for k, v in launches.items() if v == 0]
-            if missing:
-                raise AssertionError(f"{tag} run launched no {missing}")
+            require_launches(f"{tag} run", launches, exact_path)
         gpu_res, launches = runs["cold"]
         if runs["warm"][0]["species_identify"] != gpu_res["species_identify"]:
             raise AssertionError("warm run differs from the cold run")
         if gpu_res["duration"] != SECONDS or not gpu_res["chirps"]["signals"]:
             raise AssertionError(f"unexpected result: {summary_of(gpu_res)}")
 
-        log(json.dumps({"profile": "warm", "device": "cuda", **profile_run(wav, model_dir)}))
+        log(json.dumps({"profile": "warm", "device": "cuda",
+                        **profile_run(lambda: run_cli(wav, model_dir, "cuda"))}))
 
         t0 = time.perf_counter()
         check_golden("cuda")
@@ -513,11 +685,85 @@ def main():
         compare_results(gpu_res, cpu_res)
         log("card result equals the CPU result")
 
+        # the fast level's batch path: 8 x 60 s, AAT_FAST=1
+        from audio_analysis_torch.utils.runtime import StageTimer
+
+        t0 = time.perf_counter()
+        wavs = []
+        for i in range(BACKLOG):
+            wavs.append(tmp / f"batch{i}.wav")
+            silent_from = BATCH_SILENT_FROM[i % len(BATCH_SILENT_FROM)]
+            write_wav(wavs[-1], make_recording(silent_from=silent_from, seed=i), SR)
+        backlog, wavs = wavs, wavs[:8]
+        models = [write_tuinet_model(tmp / "bird-model", seed=0, net_dtype=None,
+                                     name="bird-model"),
+                  write_tuinet_model(tmp / "pre-model", seed=2, labels=PRE_LABELS,
+                                     net_dtype=None, pre_model=True, name="pre-model")]
+        log(f"batch fixtures written in {time.perf_counter() - t0:.1f} s: "
+            f"{len(backlog)} x {SECONDS} s WAVs, bird and pre TuiNets (bfloat16)")
+        os.environ["AAT_FAST"] = "1"
+        fast_path = {"stft_mel_bf16": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
+                     "stft_mel": 0}
+        batch_runs, captured = {}, {}
+        for tag in ("cold", "warm"):
+            timer = StageTimer()
+            with capture_bf16(captured) if tag == "cold" else contextlib.nullcontext():
+                res, wall, batch_launches = run_batch_cli(wavs, models, "cuda", timer)
+            batch_runs[tag] = res
+            log(json.dumps({"batch_run": tag, "device": "cuda", "recordings": len(res),
+                            "wall_s": wall, "audio_s_per_s": len(res) * SECONDS / wall,
+                            "launches": batch_launches, "timing": timer.as_dict(),
+                            "results": [summary_of(r["analysis"]) for r in res]}))
+            require_launches(f"batch {tag} run", batch_launches, fast_path)
+        if without_times(batch_runs["warm"]) != without_times(batch_runs["cold"]):
+            raise AssertionError("the warm batch differs from the cold batch")
+        durations = [r["analysis"]["duration"] for r in batch_runs["cold"]]
+        if len(durations) != len(wavs) or any(d != SECONDS for d in durations):
+            raise AssertionError(f"unexpected batch durations: {durations}")
+        if not all(r["analysis"]["chirps"]["signals"] for r in batch_runs["cold"]):
+            raise AssertionError("a batch recording has no signals")
+        if sorted(captured) != ["batch classify", "batch end-scan"]:
+            raise AssertionError(f"stft_mel_bf16 inputs captured: {sorted(captured)}")
+        for tag, (x, kw) in sorted(captured.items()):
+            kernels[f"stft_mel_bf16[{tag}]"] = bf16_entry(f"stft_mel_bf16[{tag}]", x, kw)
+        del captured
+
+        # a backlog of three batches through the pipelined stream
+        timer = StageTimer()
+        res, wall, backlog_launches = run_batch_cli(backlog, models, "cuda", timer)
+        log(json.dumps({"batch_run": "backlog", "device": "cuda", "recordings": len(res),
+                        "batches": -(-len(res) // 8), "wall_s": wall,
+                        "audio_s_per_s": len(res) * SECONDS / wall,
+                        "launches": backlog_launches, "timing": timer.as_dict()}))
+        require_launches("backlog run", backlog_launches,
+                         {k: 3 * least for k, least in fast_path.items()})
+        if without_times(res[:8]) != without_times(batch_runs["warm"]):
+            raise AssertionError("the backlog's first batch differs from the warm batch")
+        log(json.dumps({"profile": "batch warm", "device": "cuda",
+                        **profile_run(lambda: run_batch_cli(wavs, models, "cuda"))}))
+
+        cpu_batch, wall, cpu_launches = run_batch_cli(wavs[:4], models, "cpu")
+        log(json.dumps({"batch_run": "cpu", "device": "cpu", "recordings": len(cpu_batch),
+                        "wall_s": wall, "launches": cpu_launches}))
+        if any(cpu_launches.values()):
+            raise AssertionError(f"the CPU batch launched kernels: {cpu_launches}")
+        worst = 0
+        for g, c in zip(batch_runs["cold"], cpu_batch):
+            worst = max(worst, compare_results(g["analysis"], c["analysis"], confidence_tol=2))
+        log(json.dumps({"fast_card_vs_cpu": len(cpu_batch), "max_confidence_diff": worst}))
+        os.environ.pop("AAT_FAST")
+
     out = []
     for name, m in kernels.items():
         base = name.split("[")[0]
+        # each kernel's count on this slice's path where it runs there,
+        # else on the single-recording path
+        n = batch_launches[base] if fast_path[base] else launches[base]
         out.append({k: m.get(k) for k in (
-            "name", "route", "source", "replaces")} | {"launches": launches[base]} | {
+            "name", "route", "source", "replaces")} | {"launches": n} | {
+            "launches_by_path": {"analyse_exact": launches[base],
+                                 "batch_fast": batch_launches[base],
+                                 "backlog_fast": backlog_launches[base]}} | {
             k: m.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "max_rel", "shape")})
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -89,6 +89,50 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         md.col_medians(torch.zeros(1, 5, 5, device=cuda_device, dtype=torch.float64))
 
 
+# (sr, n_fft, hop, n_mels, samples, frames): the classify frontend, the
+# end-scan's frame prefix, a 4.5 s window of 338 frames, n_fft % 8 != 0
+BF16_GEOMS = {
+    "classify": (48000, 4096, 640, 160, 144000, None),
+    "endscan": (48000, 4800, 281, 120, 96000, 340),
+    "long": (48000, 4096, 640, 160, 216000, None),
+    "nfft500": (16000, 500, 125, 40, 16000, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", list(BF16_GEOMS))
+@pytest.mark.parametrize("power", [1.0, 2.0])
+def test_stft_mel_bf16_kernel_matches_plain(cuda_device, rng, geom, power):
+    """Limit 1e-2 max rel: one bf16 rounding flip of a power term moves a
+    mel value by at most 2^-7 of itself; the order of the float32 sums adds
+    ~1e-6. No atomics, so two launches agree bit for bit."""
+    sr, n_fft, hop, n_mels, s, frames = BF16_GEOMS[geom]
+    wins = torch.from_numpy(rng.randn(3, s).astype(np.float32)).to(cuda_device)
+    kw = dict(sr=sr, n_fft=n_fft, hop_length=hop, n_mels=n_mels, fmin=50.0,
+              fmax=min(11000.0, sr / 2), power=power, frames=frames)
+    before = ms.stft_mel_bf16.launches
+    got = ms.stft_mel_bf16(wins, **kw)
+    assert ms.stft_mel_bf16.launches == before + 1
+    ref = ms.stft_mel_bf16_plain(wins, **kw)
+    assert got.shape == ref.shape == (3, n_mels, frames or 1 + s // hop)
+    assert _max_rel(got, ref) <= 1e-2
+    assert torch.equal(got, ms.stft_mel_bf16(wins, **kw))
+    slaney = ms.stft_mel_bf16(wins, htk=False, **kw)
+    assert _max_rel(slaney, ms.stft_mel_bf16_plain(wins, htk=False, **kw)) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_bf16_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    kw = dict(sr=16000, n_fft=512, hop_length=160, fmin=50.0, fmax=7000.0)
+    x = torch.zeros(2, 4000, device=cuda_device)
+    with pytest.raises(ValueError):
+        ms.stft_mel_bf16(x, n_mels=257, **kw)
+    with pytest.raises(ValueError):
+        ms.stft_mel_bf16(x.double(), n_mels=40, **kw)
+    with pytest.raises(ValueError):
+        ms.stft_mel_bf16(x, n_mels=40, power=0.0, **kw)
+
+
 def _spec(rng, kind, bins, t):
     if kind == "ties":
         return (rng.randint(0, 4, size=(bins, t)) * 0.25).astype(np.float32)
