@@ -1,4 +1,5 @@
-// Framed real DFT with a mel or a magnitude epilogue, for Hopper (sm_90a).
+// Framed real DFT in float64 with a mel or a magnitude epilogue, for Hopper
+// (sm_90a).
 //
 // stft_mel replaces the Pallas kernel audio_analysis_tpu/ops/pallas/melspec.py
 // :: _kernel_dif (classify frontend, n_fft 4096 / hop 640 / 160 mels, and the
@@ -7,50 +8,396 @@
 // 1 + n_fft/2 bins in natural order, Nyquist included).
 //
 // What they compute, with librosa's conventions: frame t of a signal x[S] is
-// x[t*hop - n_fft/2 .. t*hop + n_fft/2), zero outside [0, S) (centre framing
-// with constant padding); it is multiplied by the periodic Hann window, and
-// its real DFT X_k = sum_n x_n e^{-2 pi i k n / n_fft} is taken. stft_mag
-// writes |X_k|^power as out[b][k][t]; stft_mel writes
-// out[w][m][t] = sum_k fb[m][k] |X_k|^power over the first `bins` bins (the
-// mel filterbank's support; the rest carry zero weight).
+// x[t*hop - n_fft/2 .. t*hop - n_fft/2 + n_fft), zero outside [0, S) (centre
+// framing with constant padding); it is multiplied by the periodic Hann
+// window in float32, widened to float64, and its real DFT
+// X_k = sum_n x_n e^{-2 pi i k n / n_fft} is taken in float64. stft_mag writes
+// |X_k|^power rounded to float32 as out[b][k][t]; stft_mel writes
+// out[w][m][t] = sum_k fb[m][k] |X_k|^power over each filter's nonzero
+// support [fb_lo[m], fb_hi[m]), float64 products of the float32 operands,
+// rounded to float32. The plain versions (ops/melspec.py) compute the same
+// with torch.fft in float64. Float64 is the contract: the detection mask
+// flips bits at ~5e-5 relative error at 1e-3 of the maximum bin, where a
+// float32 FFT is off by 2-8e-5.
 //
-// Design (simple first): one block per (signal, tile of TF frames). The
-// windowed frames (x * window in float32, as the plain version does) are
-// staged in shared memory as float64 straight from the signal, by index,
-// so no framed matrix ever exists in device memory. Each thread owns one
-// DFT bin k at a time and walks n once for all TF frames. Its twiddle
-// e^{-2 pi i k n / n_fft} advances by a float64 rotation per sample and is
-// re-read exactly from a cos/sin table (built in float64 on the host, read
-// through the cache) every RESYNC samples, which bounds the drift below
-// 1e-13 relative. Products and sums are float64 FMAs: the median
-// thresholds downstream consume raw bin magnitudes at a floor of 1e-3 of
-// the maximum, where float32 arithmetic (an f32 FFT included) is off by
-// 2-8e-5 relative, so the kernel matches an f64 oracle instead, for any
-// n_fft (4096 = 2^12 and 4800 = 2^6 * 3 * 5^2 alike: no radix
-// restriction). TF is the largest of 8/4/2/1 whose tile fits in shared
-// memory. The mel projection reads the float32 power spectrum from shared
-// memory and sums over each filter's nonzero support in float64. No
-// atomics: every output is written once by one thread, so results do not
-// change from run to run.
+// Two routes, picked by the wrapper from n_fft alone (ops/melspec.py ::
+// stft_plan, which also sizes the tiles):
 //
-// What bounds it: as a function, the larger of its bytes (the PCM read
+// * fft: n_fft whose prime factors are 2, 3, 5 and 7 (4096 = 8^4,
+//   4800 = 8^2 * 3 * 5^2, 4410 = 2 * 3^2 * 5 * 7^2). One block of 512
+//   threads owns a tile of TF consecutive frames of one signal and takes
+//   them two at a time as one complex FFT, z = frame_a + i frame_b, staged
+//   from the signal by index (no framed matrix exists in device memory).
+//   The FFT is a mixed-radix Stockham autosort in shared memory: each pass
+//   of radix R reads butterfly j's R points at stride n/R, multiplies them by
+//   their twiddles, takes the R-point DFT in registers (radix 2 and 4 exact,
+//   8 as two radix-4 DFTs and the w8 rotations, 3, 5 and 7 directly with
+//   table constants), and writes them at stride ns (the product of the
+//   earlier radices) into the other buffer, so the result lands in natural
+//   order without a bit-reversal pass. The radix sequence (8s first) and the
+//   float64 cos/sin table (built in float64 on the host) come from the
+//   wrapper. Each block copies a two-level table from it into shared memory
+//   (e^{-2 pi i 64 h / n} and e^{-2 pi i l / n}, l < 64: 2 KB at n 4096), and
+//   a twiddle is the product of two entries, one rounding from the table's
+//   value, never advanced by a recurrence: the FFT stays near 1e-15
+//   relative. The two spectra are split with
+//   X_a[k] = (Z[k] + conj Z[n-k]) / 2 and X_b[k] = (Z[k] - conj Z[n-k]) / 2i.
+//   Pairing leaves rounding residue of a non-zero partner in an all-zero
+//   frame, so staging flags each frame's non-zero samples block-wide and an
+//   all-zero frame is written as exact zeros. |X|^power goes into a float32
+//   tile in shared memory: stft_mag's [bins][TF + 1] tile (padded against
+//   bank conflicts) is written out as rows of TF contiguous frames (32 bytes
+//   at TF 8); stft_mel sums its [TF][bins] tile over each filter's support.
+// * direct: any other n_fft (4400 = 2^4 * 5^2 * 11, for one). Each thread
+//   owns one bin at a time and walks the TF staged frames with float64 FMAs,
+//   its twiddle advanced by a rotation and re-read exactly from the table
+//   every RESYNC samples (drift below 1e-13 relative): 4 * bins * n_fft
+//   operations per frame, about 270x the FFT's at n_fft 4096.
+//
+// What bounds them: as functions, the larger of their bytes (the PCM read
 // once, the output written once, over 3.35 TB/s) and the operations of a
-// real FFT computing it (2.5 n_fft log2 n_fft per frame, plus 2 per nonzero
-// mel weight, over the 67 TFLOP/s float32 peak). stft_mag, which writes
-// every bin, is bound by its bytes; stft_mel, whose mel output is small, by
-// those operations (2-5x its bytes at the main path's shapes). This direct
-// DFT does far more: 4 * bins * n_fft float64 flops per frame (plus the
-// rotation's 4 per bin and sample, shared by the TF frames), and is bound
-// by them. Left for later: the DFT as a tensor-core GEMM against
-// Hann-folded DFT matrices (wgmma, with a split for float32 accuracy) or an
-// FFT in shared memory, and TMA staging of the frames.
+// real FFT (2.5 n_fft log2 n_fft per frame, plus 2 per nonzero mel weight)
+// over the 67 TFLOP/s float32 peak. stft_mag, which writes every bin, is
+// bound by its bytes (84 MB for a 60 s recording); stft_mel, whose mel
+// output is small, by those operations. The FFT itself does ~5 n log2 n
+// float64 operations per pair of frames, a few hundredths of a millisecond
+// of the card's float64 rate per recording. What holds the design is
+// latency in one block per SM: two complex buffers (ping-pong, one spare
+// double after every 8 so that the stride-8 writes of the first passes hit
+// distinct banks), the twiddle table and the tile fill the SM's shared
+// memory, so a pass's shared-memory and twiddle reads, the staging's reads
+// of the signal and the tile's write-out are not overlapped by another
+// block's work; a barrier ends each pass. No atomics: every output is
+// written once by one thread, so two launches agree bit for bit.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int RESYNC = 64;  // samples between exact twiddle reloads
+constexpr int THREADS = 256;      // direct route
+constexpr int FFT_THREADS = 512;  // fft route
+constexpr int RESYNC = 64;        // samples between exact twiddle reloads (direct)
+constexpr int TW_LO = 64;         // low level of the fft route's twiddle table
+
+// Entries of each half (cos, sin) of the fft route's two-level twiddle table.
+__host__ __device__ constexpr int twiddle_rows(int n) {
+  return (n + TW_LO - 1) / TW_LO + TW_LO;
+}
+
+// The fft route keeps point i of a complex buffer at pad(i), one spare
+// double after every 8, so that a pass's stride-8 writes (8 consecutive
+// points per thread when ns = 1, runs of 8 when ns = 8) hit distinct banks;
+// each half (re, im) of a buffer holds padded(n) doubles.
+__host__ __device__ constexpr int pad(int i) { return i + (i >> 3); }
+__host__ __device__ constexpr int padded(int n) { return n + (n >> 3); }
+
+__device__ __forceinline__ float power_of(double re, double im, float power) {
+  const double p2 = re * re + im * im;
+  if (power == 2.f) return (float)p2;
+  const double mag = sqrt(p2);
+  if (power == 1.f) return (float)mag;
+  return (float)pow(mag, (double)power);
+}
+
+// out[w][m][t0 + f] = sum over fb row m's support of fb[m][k] * pw[f][k],
+// for the nf frames of the tile; pw [TF, bins] float32.
+__device__ void mel_epilogue(const float* pw, const float* __restrict__ fb,
+                             const int* __restrict__ fb_lo, const int* __restrict__ fb_hi,
+                             float* __restrict__ out, int w, int t0, int nf, int n_out,
+                             int bins, int n_mels) {
+  for (int o = threadIdx.x; o < nf * n_mels; o += blockDim.x) {
+    const int m = o / nf;
+    const int f = o - m * nf;
+    const float* row = fb + (long)m * bins;
+    const float* p = pw + f * bins;
+    double acc = 0.0;
+    for (int k = fb_lo[m]; k < fb_hi[m]; ++k) acc += (double)row[k] * (double)p[k];
+    out[((long)w * n_mels + m) * n_out + t0 + f] = (float)acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fft route
+// ---------------------------------------------------------------------------
+
+// (re + i im) * (c - i s): a twiddle e^{-i theta} given as
+// c = cos(theta), s = sin(theta).
+__device__ __forceinline__ void twiddle(double& re, double& im, double c, double s) {
+  const double r = fma(re, c, im * s);
+  im = fma(im, c, -re * s);
+  re = r;
+}
+
+// R-point DFT in place, V[k] = sum_r v[r] w^{rk}, w = e^{-2 pi i / R};
+// wc/ws[q] = cos/sin(2 pi q / R). Odd R: directly.
+template <int R>
+__device__ __forceinline__ void butterfly(double (&vr)[R], double (&vi)[R],
+                                          const double (&wc)[R], const double (&ws)[R]) {
+  double yr[R], yi[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    double sr = vr[0], si = vi[0];
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+      const int q = (r * k) % R;
+      sr = fma(vr[r], wc[q], fma(vi[r], ws[q], sr));
+      si = fma(vi[r], wc[q], fma(-vr[r], ws[q], si));
+    }
+    yr[k] = sr;
+    yi[k] = si;
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    vr[k] = yr[k];
+    vi[k] = yi[k];
+  }
+}
+
+template <>
+__device__ __forceinline__ void butterfly<2>(double (&vr)[2], double (&vi)[2],
+                                             const double (&)[2], const double (&)[2]) {
+  const double r = vr[0] - vr[1], i = vi[0] - vi[1];
+  vr[0] += vr[1];
+  vi[0] += vi[1];
+  vr[1] = r;
+  vi[1] = i;
+}
+
+template <>
+__device__ __forceinline__ void butterfly<4>(double (&vr)[4], double (&vi)[4],
+                                             const double (&)[4], const double (&)[4]) {
+  const double ar = vr[0] + vr[2], ai = vi[0] + vi[2];
+  const double br = vr[0] - vr[2], bi = vi[0] - vi[2];
+  const double cr = vr[1] + vr[3], ci = vi[1] + vi[3];
+  const double dr = vr[1] - vr[3], di = vi[1] - vi[3];
+  vr[0] = ar + cr;  vi[0] = ai + ci;
+  vr[1] = br + di;  vi[1] = bi - dr;  // b - i d
+  vr[2] = ar - cr;  vi[2] = ai - ci;
+  vr[3] = br - di;  vi[3] = bi + dr;  // b + i d
+}
+
+template <>
+__device__ __forceinline__ void butterfly<8>(double (&vr)[8], double (&vi)[8],
+                                             const double (&)[8], const double (&)[8]) {
+  // two 4-point DFTs of the even and odd points, then V[k] = E[k] + w8^k O[k]
+  // and V[k + 4] = E[k] - w8^k O[k], w8 = e^{-i pi / 4}
+  constexpr double h = 0.70710678118654752440;  // sqrt(1/2)
+  double er[4] = {vr[0], vr[2], vr[4], vr[6]}, ei[4] = {vi[0], vi[2], vi[4], vi[6]};
+  double orr[4] = {vr[1], vr[3], vr[5], vr[7]}, oi[4] = {vi[1], vi[3], vi[5], vi[7]};
+  const double (&none)[4] = er;  // radix 4 takes no constants
+  butterfly<4>(er, ei, none, none);
+  butterfly<4>(orr, oi, none, none);
+  const double t1r = (orr[1] + oi[1]) * h, t1i = (oi[1] - orr[1]) * h;  // w8 O1
+  const double t2r = oi[2], t2i = -orr[2];                              // -i O2
+  const double t3r = (oi[3] - orr[3]) * h, t3i = -(orr[3] + oi[3]) * h;  // w8^3 O3
+  vr[0] = er[0] + orr[0];  vi[0] = ei[0] + oi[0];
+  vr[4] = er[0] - orr[0];  vi[4] = ei[0] - oi[0];
+  vr[1] = er[1] + t1r;     vi[1] = ei[1] + t1i;
+  vr[5] = er[1] - t1r;     vi[5] = ei[1] - t1i;
+  vr[2] = er[2] + t2r;     vi[2] = ei[2] + t2i;
+  vr[6] = er[2] - t2r;     vi[6] = ei[2] - t2i;
+  vr[3] = er[3] + t3r;     vi[3] = ei[3] + t3i;
+  vr[7] = er[3] - t3r;     vi[7] = ei[3] - t3i;
+}
+
+// The twiddle e^{-2 pi i t / n} for t < n, from the two-level table tw in
+// shared memory: tw[h] = e^{-2 pi i 64 h / n} for h < nh = ceil(n / 64),
+// tw[nh + l] = e^{-2 pi i l / n} for l < 64 (cos in tw[0, nt), sin in
+// tw[nt, 2 nt), nt = nh + 64), both copied from the float64 table; their
+// product rounds once more, ~1e-16.
+__device__ __forceinline__ void twiddle_of(const double* tw, int nh, int t, double& c,
+                                           double& s) {
+  const int nt = nh + TW_LO;
+  const int h = t / TW_LO, l = nh + t % TW_LO;
+  const double c1 = tw[h], s1 = tw[nt + h], c0 = tw[l], s0 = tw[nt + l];
+  c = fma(c1, c0, -s1 * s0);
+  s = fma(s1, c0, c1 * s0);
+}
+
+// Fills the two-level twiddle table (twiddle_of) from cs/sn.
+__device__ void load_twiddles(double* tw, int n, const double* __restrict__ cs,
+                              const double* __restrict__ sn) {
+  const int nh = (n + TW_LO - 1) / TW_LO, nt = nh + TW_LO;
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
+    const int q = i < nh ? i * TW_LO : i - nh;
+    tw[i] = q < n ? cs[q] : 1.0;
+    tw[nt + i] = q < n ? sn[q] : 0.0;
+  }
+}
+
+// One Stockham pass of radix R over n points: butterfly j (j < n/R) reads
+// src[j + r n/R], twiddles point r by e^{-2 pi i r (j mod ns) / (ns R)}
+// (table index r (j mod ns) n / (ns R)), and writes
+// dst[(j - j mod ns) R + j mod ns + r ns]. ns is the product of the radices
+// of the earlier passes.
+template <int R>
+__device__ void fft_pass(const double* __restrict__ sr, const double* __restrict__ si,
+                         double* __restrict__ dr, double* __restrict__ di, int n, int ns,
+                         const double* tw, const double* __restrict__ cs,
+                         const double* __restrict__ sn) {
+  const int m = n / R;
+  const int step = m / ns;
+  const int nh = (n + TW_LO - 1) / TW_LO;
+  double wc[R], ws[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    wc[q] = __ldg(cs + q * m);
+    ws[q] = __ldg(sn + q * m);
+  }
+#pragma unroll 2
+  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+    const int jm = j % ns;
+    double vr[R], vi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      vr[r] = sr[pad(j + r * m)];
+      vi[r] = si[pad(j + r * m)];
+    }
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+      double c, s;
+      twiddle_of(tw, nh, r * jm * step, c, s);
+      twiddle(vr[r], vi[r], c, s);
+    }
+    butterfly<R>(vr, vi, wc, ws);
+    const int d = (j - jm) * R + jm;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      dr[pad(d + r * ns)] = vr[r];
+      di[pad(d + r * ns)] = vi[r];
+    }
+  }
+}
+
+// The complex FFT of the n points in a (re at a[pad(i)], im at
+// a[padded(n) + pad(i)]), with b as the other buffer of the same size and tw
+// the two-level twiddle table; returns the buffer holding the result.
+__device__ const double* fft(double* a, double* b, const double* tw, int n,
+                             const int* __restrict__ radix, int n_pass,
+                             const double* __restrict__ cs, const double* __restrict__ sn) {
+  const int np = padded(n);
+  int ns = 1;
+  for (int p = 0; p < n_pass; ++p) {
+    const int r = __ldg(radix + p);
+    switch (r) {
+      case 8: fft_pass<8>(a, a + np, b, b + np, n, ns, tw, cs, sn); break;
+      case 4: fft_pass<4>(a, a + np, b, b + np, n, ns, tw, cs, sn); break;
+      case 2: fft_pass<2>(a, a + np, b, b + np, n, ns, tw, cs, sn); break;
+      case 3: fft_pass<3>(a, a + np, b, b + np, n, ns, tw, cs, sn); break;
+      case 5: fft_pass<5>(a, a + np, b, b + np, n, ns, tw, cs, sn); break;
+      default: fft_pass<7>(a, a + np, b, b + np, n, ns, tw, cs, sn); break;
+    }
+    __syncthreads();
+    double* t = a;
+    a = b;
+    b = t;
+    ns *= r;
+  }
+  return a;
+}
+
+// Stages frames ta and ta + 1 (the second only when has_b) of x[S], windowed
+// in float32, as z = frame_a + i frame_b in the buffer a (layout of fft).
+// Returns, block-wide, bit 0 set when frame a has a non-zero sample and
+// bit 1 when frame b has one.
+__device__ int stage_pair(double* a, const float* __restrict__ x,
+                          const float* __restrict__ win, long S, int n, int hop, int ta,
+                          bool has_b) {
+  const long s0 = (long)ta * hop - n / 2;
+  const int np = padded(n);
+  int nz = 0;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float w = win[i];
+    const long s = s0 + i;
+    float va = 0.f, vb = 0.f;
+    if (s >= 0 && s < S) va = x[s] * w;
+    if (has_b && s + hop >= 0 && s + hop < S) vb = x[s + hop] * w;
+    a[pad(i)] = (double)va;
+    a[np + pad(i)] = (double)vb;
+    nz |= (va != 0.f ? 1 : 0) | (vb != 0.f ? 2 : 0);
+  }
+  const int any_a = __syncthreads_or(nz & 1);
+  const int any_b = __syncthreads_or(nz & 2);
+  return (any_a ? 1 : 0) | (any_b ? 2 : 0);
+}
+
+// Splits the pair's spectrum z (layout of fft) and writes
+// |X_a[k]|^power to dst[k * sk] and |X_b[k]|^power to dst[k * sk + sf] for
+// k < bins; a frame flagged all-zero (bit clear in nz) gets exact zeros.
+__device__ void split_pair(const double* z, int n, int bins, float power, int nz,
+                           float* dst, int sk, int sf) {
+  const double* zi = z + padded(n);
+  for (int k = threadIdx.x; k < bins; k += blockDim.x) {
+    const int k2 = k ? n - k : 0;
+    const double pr = z[pad(k)], pi = zi[pad(k)], qr = z[pad(k2)], qi = zi[pad(k2)];
+    dst[k * sk] = (nz & 1) ? power_of(0.5 * (pr + qr), 0.5 * (pi - qi), power) : 0.f;
+    dst[k * sk + sf] = (nz & 2) ? power_of(0.5 * (pi + qi), 0.5 * (qr - pr), power) : 0.f;
+  }
+}
+
+// grid (ceil(n_frames / TF), B); out [B, bins, n_frames], bins = n/2 + 1
+template <int TF>
+__global__ void __launch_bounds__(FFT_THREADS, 1)
+stft_mag_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                    const double* __restrict__ cs, const double* __restrict__ sn,
+                    const int* __restrict__ radix, int n_pass, float* __restrict__ out,
+                    long T, int n, int hop, int n_frames, int bins, float power) {
+  extern __shared__ double smem[];
+  double* a = smem;                    // complex buffer, ping
+  double* b = smem + 2 * padded(n);    // complex buffer, pong
+  double* tw = smem + 4 * padded(n);   // two-level twiddle table
+  float* tile = (float*)(tw + 2 * twiddle_rows(n));  // [bins, TF + 1] |X|^power
+  const int sig = blockIdx.y;
+  const int t0 = blockIdx.x * TF;
+  const int nf = min(TF, n_frames - t0);
+  const float* xs = x + (long)sig * T;
+  load_twiddles(tw, n, cs, sn);
+  for (int f = 0; f < nf; f += 2) {
+    const int nz = stage_pair(a, xs, win, T, n, hop, t0 + f, f + 1 < nf);
+    const double* z = fft(a, b, tw, n, radix, n_pass, cs, sn);
+    split_pair(z, n, bins, power, nz, tile + f, TF + 1, 1);
+    __syncthreads();
+  }
+  float* o = out + (long)sig * bins * n_frames + t0;
+  for (int i = threadIdx.x; i < bins * TF; i += blockDim.x) {
+    const int k = i / TF;
+    const int f = i - k * TF;
+    if (f < nf) o[(long)k * n_frames + f] = tile[k * (TF + 1) + f];
+  }
+}
+
+// grid (ceil(n_out / TF), n_windows); out [n_windows, n_mels, n_out]
+template <int TF>
+__global__ void __launch_bounds__(FFT_THREADS, 1)
+stft_mel_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                    const double* __restrict__ cs, const double* __restrict__ sn,
+                    const int* __restrict__ radix, int n_pass, const float* __restrict__ fb,
+                    const int* __restrict__ fb_lo, const int* __restrict__ fb_hi,
+                    float* __restrict__ out, long S, int n, int hop, int n_out, int bins,
+                    int n_mels, float power) {
+  extern __shared__ double smem[];
+  double* a = smem;
+  double* b = smem + 2 * padded(n);
+  double* tw = smem + 4 * padded(n);
+  float* pw = (float*)(tw + 2 * twiddle_rows(n));  // [TF, bins] |X|^power
+  const int w = blockIdx.y;
+  const int t0 = blockIdx.x * TF;
+  const int nf = min(TF, n_out - t0);
+  const float* xs = x + (long)w * S;
+  load_twiddles(tw, n, cs, sn);
+  for (int f = 0; f < nf; f += 2) {
+    const int nz = stage_pair(a, xs, win, S, n, hop, t0 + f, f + 1 < nf);
+    const double* z = fft(a, b, tw, n, radix, n_pass, cs, sn);
+    split_pair(z, n, bins, power, nz, pw + f * bins, 1, bins);
+    __syncthreads();
+  }
+  mel_epilogue(pw, fb, fb_lo, fb_hi, out, w, t0, nf, n_out, bins, n_mels);
+}
+
+// ---------------------------------------------------------------------------
+// direct route
+// ---------------------------------------------------------------------------
 
 template <int TF>
 __device__ void stage_frames(double* fr, const float* __restrict__ x,
@@ -99,14 +446,6 @@ __device__ void dft_bin(const double* fr, const double* __restrict__ cs,
   }
 }
 
-__device__ __forceinline__ float power_of(double re, double im, float power) {
-  const double p2 = re * re + im * im;
-  if (power == 2.f) return (float)p2;
-  const double mag = sqrt(p2);
-  if (power == 1.f) return (float)mag;
-  return (float)pow(mag, (double)power);
-}
-
 // grid (ceil(n_out / TF), n_windows); out [n_windows, n_mels, n_out]
 template <int TF>
 __global__ void __launch_bounds__(THREADS)
@@ -130,15 +469,7 @@ stft_mel_kernel(const float* __restrict__ x, const float* __restrict__ win,
     for (int f = 0; f < TF; ++f) pw[f * bins + k] = power_of(re[f], im[f], power);
   }
   __syncthreads();
-  for (int o = threadIdx.x; o < nf * n_mels; o += blockDim.x) {
-    const int m = o / nf;
-    const int f = o - m * nf;
-    const float* row = fb + (long)m * bins;
-    const float* p = pw + f * bins;
-    double acc = 0.0;
-    for (int k = fb_lo[m]; k < fb_hi[m]; ++k) acc += (double)row[k] * (double)p[k];
-    out[((long)w * n_mels + m) * n_out + t0 + f] = (float)acc;
-  }
+  mel_epilogue(pw, fb, fb_lo, fb_hi, out, w, t0, nf, n_out, bins, n_mels);
 }
 
 // grid (ceil(n_frames / TF), B); out [B, n_bins, n_frames]
@@ -165,6 +496,10 @@ stft_mag_kernel(const float* __restrict__ x, const float* __restrict__ win,
   }
 }
 
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
 int max_smem_optin() {
   int dev = 0, v = 0;
   cudaGetDevice(&dev);
@@ -172,92 +507,110 @@ int max_smem_optin() {
   return v;
 }
 
-template <int TF>
-cudaError_t launch_mel(dim3 grid, size_t smem, cudaStream_t st, const float* x,
-                       const float* win, const double* cs, const double* sn,
-                       const float* fb, const int* lo, const int* hi, float* out,
-                       long S, int n_fft, int hop, int n_out, int bins, int n_mels,
-                       float power) {
-  cudaFuncSetAttribute(stft_mel_kernel<TF>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  stft_mel_kernel<TF><<<grid, THREADS, smem, st>>>(
-      x, win, cs, sn, fb, lo, hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
+// Shared memory of one block; ops/melspec.py :: stft_smem sizes it the same.
+// The fft route's mag tile has a padded row of tf + 1 frames.
+size_t fft_smem(int tf, int n_fft, int bins, bool mel) {
+  return sizeof(double) * (4 * (size_t)padded(n_fft) + 2 * twiddle_rows(n_fft)) +
+         sizeof(float) * (size_t)(mel ? tf : tf + 1) * bins;
+}
+
+size_t direct_smem(int tf, int n_fft, int mel_bins) {
+  return sizeof(double) * (size_t)tf * n_fft + sizeof(float) * (size_t)tf * mel_bins;
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t st,
+                   Args... args) {
+  if (smem > (size_t)max_smem_optin()) return cudaErrorInvalidValue;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kernel<<<grid, threads, smem, st>>>(args...);
   return cudaGetLastError();
-}
-
-template <int TF>
-cudaError_t launch_mag(dim3 grid, size_t smem, cudaStream_t st, const float* x,
-                       const float* win, const double* cs, const double* sn,
-                       float* out, long T, int n_fft, int hop, int n_frames,
-                       int n_bins, float power) {
-  cudaFuncSetAttribute(stft_mag_kernel<TF>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  stft_mag_kernel<TF><<<grid, THREADS, smem, st>>>(
-      x, win, cs, sn, out, T, n_fft, hop, n_frames, n_bins, power);
-  return cudaGetLastError();
-}
-
-size_t mag_smem(int tf, int n_fft) {
-  return sizeof(double) * (size_t)tf * n_fft;
-}
-
-size_t mel_smem(int tf, int n_fft, int bins) {
-  return mag_smem(tf, n_fft) + sizeof(float) * (size_t)tf * bins;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [n_windows, S] float32; win [n_fft] float32; cs/sn [n_fft] float64
-// (cos/sin of 2 pi j / n_fft); fb [n_mels, bins] float32 with each
-// row's nonzero support [fb_lo[m], fb_hi[m]); out [n_windows, n_mels, n_out]
-// holds the first n_out frames of each window.
-int aat_stft_mel(const float* x, const float* win, const double* cs, const double* sn,
-                 const float* fb, const int* fb_lo, const int* fb_hi, float* out,
-                 int n_windows, long S, int n_fft, int hop, int n_out,
-                 int bins, int n_mels, float power, void* stream) {
-  if (n_windows <= 0 || n_out <= 0) return 0;
-  if (n_windows > 65535 || bins <= 0 || bins > n_fft / 2 + 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const size_t cap = (size_t)max_smem_optin();
-  const int tfs[4] = {8, 4, 2, 1};
-  for (int tf : tfs) {
-    const size_t smem = mel_smem(tf, n_fft, bins);
-    if (smem > cap) continue;
-    const dim3 grid((n_out + tf - 1) / tf, n_windows);
-    switch (tf) {
-      case 8: return (int)launch_mel<8>(grid, smem, st, x, win, cs, sn, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
-      case 4: return (int)launch_mel<4>(grid, smem, st, x, win, cs, sn, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
-      case 2: return (int)launch_mel<2>(grid, smem, st, x, win, cs, sn, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
-      default: return (int)launch_mel<1>(grid, smem, st, x, win, cs, sn, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
-    }
-  }
-  return (int)cudaErrorInvalidConfiguration;  // n_fft too large for shared memory
-}
+// The shared memory a block may opt in to on the current device, in bytes.
+int aat_smem_optin() { return max_smem_optin(); }
 
-// x [B, T] float32; win, cs, sn as above; out [B, n_fft/2 + 1, n_frames]
-int aat_stft_mag(const float* x, const float* win, const double* cs, const double* sn,
-                 float* out, int B, long T, int n_fft, int hop, int n_frames,
-                 float power, void* stream) {
+// fft route. x [B, T] float32; win [n_fft] float32; cs/sn [n_fft] float64
+// (cos/sin of 2 pi j / n_fft); radix [n_pass] the passes, whose product is
+// n_fft; out [B, n_fft/2 + 1, n_frames]; tf frames a block (8, 4 or 2).
+int aat_stft_mag_fft(const float* x, const float* win, const double* cs, const double* sn,
+                     const int* radix, int n_pass, float* out, int B, long T, int n_fft,
+                     int hop, int n_frames, float power, int tf, void* stream) {
   if (B <= 0 || n_frames <= 0) return 0;
   if (B > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t cap = (size_t)max_smem_optin();
-  const int n_bins = n_fft / 2 + 1;
-  const int tfs[4] = {8, 4, 2, 1};
-  for (int tf : tfs) {
-    const size_t smem = mag_smem(tf, n_fft);
-    if (smem > cap) continue;
-    const dim3 grid((n_frames + tf - 1) / tf, B);
-    switch (tf) {
-      case 8: return (int)launch_mag<8>(grid, smem, st, x, win, cs, sn, out, T, n_fft, hop, n_frames, n_bins, power);
-      case 4: return (int)launch_mag<4>(grid, smem, st, x, win, cs, sn, out, T, n_fft, hop, n_frames, n_bins, power);
-      case 2: return (int)launch_mag<2>(grid, smem, st, x, win, cs, sn, out, T, n_fft, hop, n_frames, n_bins, power);
-      default: return (int)launch_mag<1>(grid, smem, st, x, win, cs, sn, out, T, n_fft, hop, n_frames, n_bins, power);
-    }
+  const int bins = n_fft / 2 + 1;
+  const size_t smem = fft_smem(tf, n_fft, bins, false);
+  const dim3 grid((n_frames + tf - 1) / tf, B);
+  switch (tf) {
+    case 8: return (int)launch(stft_mag_fft_kernel<8>, grid, FFT_THREADS, smem, st, x, win, cs, sn, radix, n_pass, out, T, n_fft, hop, n_frames, bins, power);
+    case 4: return (int)launch(stft_mag_fft_kernel<4>, grid, FFT_THREADS, smem, st, x, win, cs, sn, radix, n_pass, out, T, n_fft, hop, n_frames, bins, power);
+    case 2: return (int)launch(stft_mag_fft_kernel<2>, grid, FFT_THREADS, smem, st, x, win, cs, sn, radix, n_pass, out, T, n_fft, hop, n_frames, bins, power);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidConfiguration;
+}
+
+// fft route. x [n_windows, S] float32; win, cs, sn, radix as above; fb
+// [n_mels, bins] float32 with each row's nonzero support
+// [fb_lo[m], fb_hi[m]); out [n_windows, n_mels, n_out] holds the first
+// n_out frames of each window.
+int aat_stft_mel_fft(const float* x, const float* win, const double* cs, const double* sn,
+                     const int* radix, int n_pass, const float* fb, const int* fb_lo,
+                     const int* fb_hi, float* out, int n_windows, long S, int n_fft, int hop,
+                     int n_out, int bins, int n_mels, float power, int tf, void* stream) {
+  if (n_windows <= 0 || n_out <= 0) return 0;
+  if (n_windows > 65535 || bins <= 0 || bins > n_fft / 2 + 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = fft_smem(tf, n_fft, bins, true);
+  const dim3 grid((n_out + tf - 1) / tf, n_windows);
+  switch (tf) {
+    case 8: return (int)launch(stft_mel_fft_kernel<8>, grid, FFT_THREADS, smem, st, x, win, cs, sn, radix, n_pass, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
+    case 4: return (int)launch(stft_mel_fft_kernel<4>, grid, FFT_THREADS, smem, st, x, win, cs, sn, radix, n_pass, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
+    case 2: return (int)launch(stft_mel_fft_kernel<2>, grid, FFT_THREADS, smem, st, x, win, cs, sn, radix, n_pass, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// direct route, any n_fft; arguments as the fft route's without the radices;
+// tf frames a block (8, 4, 2 or 1).
+int aat_stft_mag_direct(const float* x, const float* win, const double* cs, const double* sn,
+                        float* out, int B, long T, int n_fft, int hop, int n_frames,
+                        float power, int tf, void* stream) {
+  if (B <= 0 || n_frames <= 0) return 0;
+  if (B > 65535) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int bins = n_fft / 2 + 1;
+  const size_t smem = direct_smem(tf, n_fft, 0);
+  const dim3 grid((n_frames + tf - 1) / tf, B);
+  switch (tf) {
+    case 8: return (int)launch(stft_mag_kernel<8>, grid, THREADS, smem, st, x, win, cs, sn, out, T, n_fft, hop, n_frames, bins, power);
+    case 4: return (int)launch(stft_mag_kernel<4>, grid, THREADS, smem, st, x, win, cs, sn, out, T, n_fft, hop, n_frames, bins, power);
+    case 2: return (int)launch(stft_mag_kernel<2>, grid, THREADS, smem, st, x, win, cs, sn, out, T, n_fft, hop, n_frames, bins, power);
+    case 1: return (int)launch(stft_mag_kernel<1>, grid, THREADS, smem, st, x, win, cs, sn, out, T, n_fft, hop, n_frames, bins, power);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int aat_stft_mel_direct(const float* x, const float* win, const double* cs, const double* sn,
+                        const float* fb, const int* fb_lo, const int* fb_hi, float* out,
+                        int n_windows, long S, int n_fft, int hop, int n_out, int bins,
+                        int n_mels, float power, int tf, void* stream) {
+  if (n_windows <= 0 || n_out <= 0) return 0;
+  if (n_windows > 65535 || bins <= 0 || bins > n_fft / 2 + 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = direct_smem(tf, n_fft, bins);
+  const dim3 grid((n_out + tf - 1) / tf, n_windows);
+  switch (tf) {
+    case 8: return (int)launch(stft_mel_kernel<8>, grid, THREADS, smem, st, x, win, cs, sn, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
+    case 4: return (int)launch(stft_mel_kernel<4>, grid, THREADS, smem, st, x, win, cs, sn, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
+    case 2: return (int)launch(stft_mel_kernel<2>, grid, THREADS, smem, st, x, win, cs, sn, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
+    case 1: return (int)launch(stft_mel_kernel<1>, grid, THREADS, smem, st, x, win, cs, sn, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -33,8 +33,13 @@ LIB_NAME = "libaat_kernels.so"
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 # argtypes of every C entry point: c_void_p for pointers and the stream
 _SIGNATURES = {
-    "aat_stft_mel": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _F, _P],
-    "aat_stft_mag": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _F, _P],
+    "aat_smem_optin": [],
+    "aat_stft_mel_fft": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
+                         _F, _I, _P],
+    "aat_stft_mag_fft": [_P, _P, _P, _P, _P, _I, _P, _I, _L, _I, _I, _I, _F, _I, _P],
+    "aat_stft_mel_direct": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _F,
+                            _I, _P],
+    "aat_stft_mag_direct": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _F, _I, _P],
     "aat_stft_mel_bf16": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "aat_row_medians": [_P, _P, _P, _I, _I, _I, _P],
     "aat_col_medians": [_P, _P, _I, _I, _I, _P],

@@ -2,14 +2,19 @@
 
 ``stft_mel`` replaces the Pallas kernel ``ops/pallas/melspec.py::_kernel_dif``
 and ``stft_mag`` replaces ``_kernel_dif_mag`` (CUDA source:
-``csrc/stft.cu``). Each wrapper launches its kernel for a CUDA tensor and
-uses the plain PyTorch version beside it for a CPU tensor; there is no
-other route. Each counts its launches in ``.launches``.
+``csrc/stft.cu``). Each wrapper launches a kernel for a CUDA tensor and
+uses the plain PyTorch version beside it for a CPU tensor; it never falls
+back to the plain version on the card. Each counts its launches in
+``.launches`` and the launches of the direct route in ``.direct_launches``.
 
 The TPU kernels' z layout, DIF factoring, split-bf16 passes and 320-frame
 cap exist for the MXU and VMEM; here the kernel takes plain float32 windows
-[N, S], frames them by index with librosa's centre/constant padding, and
-computes the DFT for any n_fft.
+[N, S] and frames them by index with librosa's centre/constant padding.
+``stft_plan`` picks the route from the shape alone: a mixed-radix float64
+FFT in shared memory when n_fft's prime factors are 2, 3, 5 and 7 and a
+tile fits (the radices and twiddle table are built here, ``fft_radices``
+and ``_twiddles_np``), else the direct float64 DFT, which takes any n_fft;
+``ValueError`` when neither fits in the card's shared memory.
 
 Both the kernels and the plain versions window in float32 and take the DFT
 in float64, rounding to float32 at the end. The detection thresholds
@@ -36,12 +41,63 @@ from audio_analysis_torch.ops.mel import filterbank_np, mel_support_bins
 from audio_analysis_torch.ops.stft import stft_magnitude
 from audio_analysis_torch.ops.windows import get_window_np
 
+FFT_RADICES = (8, 4, 2, 3, 5, 7)  # the FFT's butterflies, in the order a plan takes them
+TWIDDLE_LO = 64  # the low level of the kernel's two-level twiddle table
+FFT_TILES = (8, 4, 2)  # frames a block of the fft route, largest that fits first
+DIRECT_TILES = (8, 4, 2, 1)  # the same for the direct route
+SMEM_OPTIN_H100 = 232448  # bytes of shared memory a block may opt in to on an H100
+
 
 @lru_cache(maxsize=8)
 def _twiddles_np(n_fft: int):
     """cos/sin(2 pi j / n_fft) for j < n_fft, float64."""
     ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
     return np.cos(ang), np.sin(ang)
+
+
+def fft_radices(n_fft: int):
+    """The FFT route's passes: radices from ``FFT_RADICES`` (8s first, then
+    4, 2, 3, 5, 7) whose product is n_fft, or None when n_fft has another
+    prime factor."""
+    out, n = [], int(n_fft)
+    for r in FFT_RADICES:
+        while n > 1 and n % r == 0:
+            out.append(r)
+            n //= r
+    return tuple(out) if n == 1 else None
+
+
+def twiddle_rows(n_fft: int) -> int:
+    """Entries of each half (cos, sin) of the fft route's two-level twiddle
+    table: e^{-2 pi i 64 h / n} for h < ceil(n / 64), then e^{-2 pi i l / n}
+    for l < 64."""
+    return -(-n_fft // TWIDDLE_LO) + TWIDDLE_LO
+
+
+def stft_smem(route: str, n_fft: int, bins: int, tf: int, mel: bool) -> int:
+    """Shared memory of one block, in bytes, as ``csrc/stft.cu`` sizes it:
+    the fft route holds two complex float64 buffers of n_fft points (one
+    spare double after every 8), the twiddle table and a float32 tile of
+    bins x tf frames (rows of tf + 1 for ``stft_mag``); the direct route tf
+    float64 frames, and for the mel kernel a tile of tf x bins."""
+    if route == "fft":
+        padded = n_fft + n_fft // 8
+        return 8 * (4 * padded + 2 * twiddle_rows(n_fft)) + 4 * (tf if mel else tf + 1) * bins
+    return 8 * tf * n_fft + (4 * tf * bins if mel else 0)
+
+
+def stft_plan(n_fft: int, bins: int, *, mel: bool, cap: int = SMEM_OPTIN_H100):
+    """(route, frames a block) for a DFT of n_fft points whose first ``bins``
+    bins are kept (the mel support, or all 1 + n_fft//2 for ``stft_mag``):
+    ``"fft"`` when ``fft_radices`` takes n_fft and a tile fits in ``cap``
+    bytes of shared memory, else ``"direct"``; ValueError when neither
+    fits."""
+    routes = (("fft", FFT_TILES),) if fft_radices(n_fft) is not None else ()
+    for route, tiles in routes + (("direct", DIRECT_TILES),):
+        for tf in tiles:
+            if stft_smem(route, n_fft, bins, tf, mel) <= cap:
+                return route, tf
+    raise ValueError(f"n_fft {n_fft}: no DFT route fits in {cap} bytes of shared memory")
 
 
 _DEVICE_CONSTS = {}
@@ -60,9 +116,12 @@ def _device_consts(key, build, device, dtype=None):
 
 
 def _dft_consts(n_fft, device):
+    """The Hann window, the twiddle table and the FFT plan's radices (empty
+    on the direct route)."""
     def build():
         cs, sn = _twiddles_np(n_fft)
-        return get_window_np("hann", n_fft, periodic=True), cs, sn
+        radix = np.asarray(fft_radices(n_fft) or (), np.int32)
+        return get_window_np("hann", n_fft, periodic=True), cs, sn, radix
 
     return _device_consts(("dft", n_fft), build, device)
 
@@ -82,8 +141,14 @@ def _mel_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk, device):
     return _device_consts(("mel", sr, n_mels, fmin, fmax, n_fft, break_freq, htk), build, device)
 
 
-def _frame_count(n_samples, hop_length, frames):
-    total = 1 + n_samples // hop_length
+def stft_frames(n_samples, n_fft, hop_length):
+    """Frames of the float64 |STFT| of n_samples: the signal padded with
+    n_fft//2 zeros on both sides (librosa's centre framing), so odd n_fft
+    has one frame fewer when hop divides n_samples."""
+    return 1 + (n_samples - n_fft % 2) // hop_length
+
+
+def _frame_count(total, frames):
     if frames is None:
         return total
     if not 0 <= frames <= total:
@@ -96,7 +161,7 @@ def stft_mel_plain(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
     """Plain PyTorch version of ``stft_mel``: constant-padded frames ->
     ``torch.fft.rfft`` in float64 -> |X|^power rounded to float32 ->
     filterbank matmul in float64, rounded to float32."""
-    n_out = _frame_count(windows.shape[-1], hop_length, frames)
+    n_out = _frame_count(stft_frames(windows.shape[-1], n_fft, hop_length), frames)
     bu = mel_support_bins(sr, n_mels, fmin, fmax, n_fft, break_freq, htk)
     p = stft_magnitude(windows, n_fft, hop_length, power=power,
                        dtype=torch.float64)[..., :bu, :n_out]
@@ -121,24 +186,31 @@ def stft_mel(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
     if windows.dim() != 2:
         raise ValueError(f"stft_mel: expected [N, S] windows, got {tuple(windows.shape)}")
     n, s = windows.shape
-    n_out = _frame_count(s, hop_length, frames)
+    n_fft = int(n_fft)
+    n_out = _frame_count(stft_frames(s, n_fft, hop_length), frames)
     dev = windows.device
-    win, cs, sn = _dft_consts(int(n_fft), dev)
-    fb, lo, hi = _mel_consts(int(sr), int(n_mels), float(fmin), float(fmax), int(n_fft),
+    win, cs, sn, radix = _dft_consts(n_fft, dev)
+    fb, lo, hi = _mel_consts(int(sr), int(n_mels), float(fmin), float(fmax), n_fft,
                              float(break_freq), bool(htk), dev)
+    lib = cuda.library()
+    route, tf = stft_plan(n_fft, fb.shape[1], mel=True, cap=lib.aat_smem_optin())
     out = torch.empty((n, n_mels, n_out), dtype=torch.float32, device=dev)
-    rc = cuda.library().aat_stft_mel(
-        windows.data_ptr(), win.data_ptr(), cs.data_ptr(), sn.data_ptr(),
-        fb.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
-        n, s, int(n_fft), int(hop_length), n_out, fb.shape[1],
-        int(n_mels), float(power), cuda.stream_of(windows),
-    )
+    ptrs = (windows.data_ptr(), win.data_ptr(), cs.data_ptr(), sn.data_ptr())
+    mel_args = (fb.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), n, s, n_fft,
+                int(hop_length), n_out, fb.shape[1], int(n_mels), float(power), tf,
+                cuda.stream_of(windows))
+    if route == "fft":
+        rc = lib.aat_stft_mel_fft(*ptrs, radix.data_ptr(), radix.numel(), *mel_args)
+    else:
+        rc = lib.aat_stft_mel_direct(*ptrs, *mel_args)
+        stft_mel.direct_launches += 1
     cuda.check(rc, "stft_mel")
     stft_mel.launches += 1
     return out
 
 
 stft_mel.launches = 0
+stft_mel.direct_launches = 0
 
 
 def stft_mag_plain(y, *, n_fft, hop_length, power=1.0):
@@ -157,19 +229,27 @@ def stft_mag(y, *, n_fft, hop_length, power=1.0):
     if y.dim() != 2:
         raise ValueError(f"stft_mag: expected [B, T] signals, got {tuple(y.shape)}")
     b, t = y.shape
-    n_frames = 1 + t // hop_length
-    win, cs, sn = _dft_consts(int(n_fft), y.device)
+    n_fft = int(n_fft)
+    n_frames = stft_frames(t, n_fft, hop_length)
+    win, cs, sn, radix = _dft_consts(n_fft, y.device)
+    lib = cuda.library()
+    route, tf = stft_plan(n_fft, n_fft // 2 + 1, mel=False, cap=lib.aat_smem_optin())
     out = torch.empty((b, n_fft // 2 + 1, n_frames), dtype=torch.float32, device=y.device)
-    rc = cuda.library().aat_stft_mag(
-        y.data_ptr(), win.data_ptr(), cs.data_ptr(), sn.data_ptr(), out.data_ptr(),
-        b, t, int(n_fft), int(hop_length), n_frames, float(power), cuda.stream_of(y),
-    )
+    ptrs = (y.data_ptr(), win.data_ptr(), cs.data_ptr(), sn.data_ptr())
+    mag_args = (out.data_ptr(), b, t, n_fft, int(hop_length), n_frames, float(power), tf,
+                cuda.stream_of(y))
+    if route == "fft":
+        rc = lib.aat_stft_mag_fft(*ptrs, radix.data_ptr(), radix.numel(), *mag_args)
+    else:
+        rc = lib.aat_stft_mag_direct(*ptrs, *mag_args)
+        stft_mag.direct_launches += 1
     cuda.check(rc, "stft_mag")
     stft_mag.launches += 1
     return out
 
 
 stft_mag.launches = 0
+stft_mag.direct_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +306,7 @@ def stft_mel_bf16_plain(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
     |X|^power rounded to bf16 and back, the mel matmul. Loops over chunks of
     windows and frames to bound memory."""
     n, s = windows.shape
-    n_out = _frame_count(s, hop_length, frames)
+    n_out = _frame_count(1 + s // hop_length, frames)
     wr, wi, melt, bu = _bf16_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk,
                                     windows.device)
     wr_t = wr[:bu, :n_fft].to(torch.float32).T  # [n_fft, bins]
@@ -271,7 +351,7 @@ def stft_mel_bf16(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
     if not power > 0:
         raise ValueError(f"stft_mel_bf16: power must be positive, got {power}")
     n, s = windows.shape
-    n_out = _frame_count(s, hop_length, frames)
+    n_out = _frame_count(1 + s // hop_length, frames)
     wr, wi, melt, _ = _bf16_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk,
                                    windows.device)
     out = torch.empty((n, n_mels, n_out), dtype=torch.float32, device=windows.device)

@@ -16,11 +16,15 @@
 4. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and on the fixtures' data, and times the
    kernel, the plain version and, where one exists, a single PyTorch call
-   computing the same function (CUDA events);
+   computing the same function (CUDA events). The float64 DFTs (stft_mel,
+   stft_mag) must agree to max rel 1e-6 and bit for bit across two
+   launches; stft_mag is timed beside torch.stft in float32 and in float64,
+   and once more at n_fft 4400 (2^4 5^2 11), which takes the direct route;
 5. the exact level's single-recording path: runs the port's CLI
    (``analyse -o FILE --bird-model DIR --seed 0``) in this process on the
    card, cold and then warm, with every kernel's launch count set to 0 just
-   before and read just after each run, then once more under
+   before and read just after each run (the float64 DFTs' direct route must
+   not run), then once more under
    torch.profiler (device busy time, idle share, device time by kernel);
    reproduces the committed golden snapshot on the card, and runs the CLI
    once more with ``--device cpu`` (the plain versions) and requires the
@@ -29,10 +33,12 @@
 6. the fast level's batch path: runs the batch CLI (``AAT_FAST=1``,
    ``batch -o --bird-model B --bird-model PRE --batch-size 8 --seed 0`` on
    the first eight WAVs) cold and then warm with the counts reset around each
-   run, requires stft_mel_bf16 twice per batch and stft_mel never, prints
-   the wall time, audio seconds per second and stage times, and holds
-   stft_mel_bf16 against its plain version on the inputs the cold batch
-   gave it (the [8, T] end-scan and the batch's padded classify grid);
+   run, requires stft_mel_bf16 twice per batch, stft_mel and the direct
+   route never, prints the wall time, audio seconds per second and stage
+   times, and holds stft_mel_bf16 and stft_mag against their plain versions
+   on the inputs the cold batch gave them (the [8, T] end-scan, the batch's
+   padded classify grid, and the [8, T] detection signals, each zeroed
+   past its own data end);
    then runs a backlog of 24 WAVs (three batches through the pipelined
    stream) and prints its audio seconds per second over the whole run,
    profiles one more warm batch, and runs the first four WAVs with
@@ -241,6 +247,82 @@ def fft_flops(n_fft):
 # ---------------------------------------------------------------------------
 
 
+def dft_route(n_fft, bins, mel):
+    """The route ("fft" or "direct") the float64 DFT wrappers take on this
+    card for n_fft, keeping the first `bins` bins."""
+    from audio_analysis_torch.ops import cuda as kcuda
+    from audio_analysis_torch.ops import melspec as ms
+
+    return ms.stft_plan(n_fft, bins, mel=mel, cap=kcuda.library().aat_smem_optin())[0]
+
+
+def dft_entry(name, replaces, fn, plain, libraries, out_bytes, in_bytes, frames, n_fft,
+              mel_nnz, route, iters):
+    """A float64 DFT kernel (stft_mel, stft_mag) against its plain version:
+    max rel <= 1e-6 (both take the DFT in float64 and round to float32, so
+    they differ by float32 rounding flips at most), two launches bit for
+    bit; its time, the plain version's and each PyTorch call's in
+    `libraries` {key: fn}, and the bound. Returns the measurement."""
+    import torch
+
+    got = fn()
+    ref = plain()
+    again = fn()
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)} or non-finite")
+    rel = max_rel(got, ref)
+    abs_err = float((got.double() - ref.double()).abs().max())
+    if not rel <= 1e-6:
+        raise AssertionError(f"{name}: max rel {rel:.3g} vs its plain version (limit 1e-6)")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches differ")
+    del again
+    ops = frames * (fft_flops(n_fft) + 2 * mel_nnz)
+    byte_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / F32_FLOPS * 1e3
+    m = dict(
+        name=name, route="cuda", dft_route=route, source="audio_analysis_torch/csrc/stft.cu",
+        replaces=replaces, max_abs_err=abs_err, max_rel=rel,
+        ms=time_ms(fn, iters), plain_ms=time_ms(plain, iters),
+        bound_ms=max(byte_ms, op_ms), bound_by="bytes" if byte_ms >= op_ms else "operations",
+        bytes_ms=byte_ms, shape=list(got.shape),
+    )
+    m["library_ms"] = None
+    for key, lib in libraries.items():
+        m[key] = time_ms(lib, iters)
+    log(json.dumps(m))
+    return m
+
+
+def mag_entry(name, y, n_fft, hop, iters):
+    """stft_mag on signals y [B, T] (n_fft, hop) through dft_entry, with
+    torch.stft(...).abs() in float32 (``library_ms``) and in float64
+    (``library_ms_f64``) as the library calls."""
+    import torch
+
+    from audio_analysis_torch.ops import melspec as ms
+
+    b, t = y.shape
+    n_frames = ms.stft_frames(t, n_fft, hop)
+    yd = y.double()
+    hann = torch.hann_window(n_fft, periodic=True, device=y.device)
+    hann_d = hann.double()
+    return dft_entry(
+        name, "audio_analysis_tpu/ops/pallas/melspec.py:453 (_kernel_dif_mag)",
+        lambda: ms.stft_mag(y, n_fft=n_fft, hop_length=hop),
+        lambda: ms.stft_mag_plain(y, n_fft=n_fft, hop_length=hop),
+        {"library_ms": lambda: torch.stft(y, n_fft, hop, window=hann, center=True,
+                                          pad_mode="constant", return_complex=True).abs(),
+         "library_ms_f64": lambda: torch.stft(yd, n_fft, hop, window=hann_d, center=True,
+                                              pad_mode="constant",
+                                              return_complex=True).abs()},
+        out_bytes=b * (n_fft // 2 + 1) * n_frames * 4, in_bytes=b * t * 4,
+        frames=b * n_frames, n_fft=n_fft, mel_nnz=0,
+        route=dft_route(n_fft, n_fft // 2 + 1, False), iters=iters,
+    )
+
+
 def check_kernels(pcm):
     """Each kernel against its plain version on the card, at the main
     path's shapes; returns {name: measurement}."""
@@ -251,7 +333,7 @@ def check_kernels(pcm):
     )
     from audio_analysis_torch.ops import medians as md
     from audio_analysis_torch.ops import melspec as ms
-    from audio_analysis_torch.ops.mel import filterbank_np
+    from audio_analysis_torch.ops.mel import filterbank_np, mel_support_bins
     from audio_analysis_torch.ops.scale import normalize_minmax
 
     dev = torch.device("cuda")
@@ -260,42 +342,18 @@ def check_kernels(pcm):
     hop = 281
     res = {}
 
-    def dft_entry(name, replaces, fn, plain, library, out_bytes, in_bytes, frames,
-                  n_fft, mel_nnz, iters):
-        got = fn()
-        ref = plain()
-        torch.cuda.synchronize()
-        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)} or non-finite")
-        rel = max_rel(got, ref)
-        abs_err = float((got.double() - ref.double()).abs().max())
-        if not rel < 1e-5:
-            raise AssertionError(f"{name}: max rel {rel:.3g} vs its plain version (limit 1e-5)")
-        ops = frames * (fft_flops(n_fft) + 2 * mel_nnz)
-        byte_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        op_ms = ops / F32_FLOPS * 1e3
-        res[name] = dict(
-            name=name, route="cuda", source="audio_analysis_torch/csrc/stft.cu",
-            replaces=replaces, max_abs_err=abs_err, max_rel=rel,
-            ms=time_ms(fn, iters), plain_ms=time_ms(plain, iters),
-            library_ms=None if library is None else time_ms(library, iters),
-            bound_ms=max(byte_ms, op_ms), bound_by="bytes" if byte_ms >= op_ms else "operations",
-            bytes_ms=byte_ms,
-            shape=list(got.shape),
-        )
-        log(json.dumps(res[name]))
-
     # end-scan mel: whole frames of the recording, n_fft sr//10 = 4800
     chunk = SR // hop
     n_keep = ((1 + t // hop) // chunk) * chunk
     kw_end = dict(sr=SR, n_fft=SR // 10, hop_length=hop, n_mels=120, fmin=50.0,
                   fmax=11000.0, break_freq=1750.0, power=1.0, htk=True, frames=n_keep)
     nnz_end = int((filterbank_np(SR, 120, 50.0, 11000.0, SR // 10, 1750.0, True) != 0).sum())
-    dft_entry(
+    bins_end = mel_support_bins(SR, 120, 50.0, 11000.0, SR // 10, 1750.0, True)
+    res["stft_mel[end-scan]"] = dft_entry(
         "stft_mel[end-scan]", "audio_analysis_tpu/ops/pallas/melspec.py:391 (_kernel_dif)",
-        lambda: ms.stft_mel(y, **kw_end), lambda: ms.stft_mel_plain(y, **kw_end), None,
+        lambda: ms.stft_mel(y, **kw_end), lambda: ms.stft_mel_plain(y, **kw_end), {},
         out_bytes=120 * n_keep * 4, in_bytes=t * 4, frames=n_keep, n_fft=SR // 10,
-        mel_nnz=nnz_end, iters=3,
+        mel_nnz=nnz_end, route=dft_route(SR // 10, bins_end, True), iters=5,
     )
 
     # classify frontend: 64 normalised 3 s windows of the recording's sound
@@ -307,12 +365,13 @@ def check_kernels(pcm):
     kw_cls = dict(sr=SR, n_fft=4096, hop_length=640, n_mels=160, fmin=50.0, fmax=11000.0,
                   break_freq=1750.0, power=2.0, htk=True)
     nnz_cls = int((filterbank_np(SR, 160, 50.0, 11000.0, 4096, 1750.0, True) != 0).sum())
+    bins_cls = mel_support_bins(SR, 160, 50.0, 11000.0, 4096, 1750.0, True)
     f_cls = 1 + sample // 640
-    dft_entry(
+    res["stft_mel[classify]"] = dft_entry(
         "stft_mel[classify]", "audio_analysis_tpu/ops/pallas/melspec.py:391 (_kernel_dif)",
-        lambda: ms.stft_mel(win, **kw_cls), lambda: ms.stft_mel_plain(win, **kw_cls), None,
+        lambda: ms.stft_mel(win, **kw_cls), lambda: ms.stft_mel_plain(win, **kw_cls), {},
         out_bytes=64 * 160 * f_cls * 4, in_bytes=64 * sample * 4, frames=64 * f_cls,
-        n_fft=4096, mel_nnz=nnz_cls, iters=3,
+        n_fft=4096, mel_nnz=nnz_cls, route=dft_route(4096, bins_cls, True), iters=5,
     )
 
     # detection |STFT| of the recording, zeroed past the end-scan's data end
@@ -326,16 +385,12 @@ def check_kernels(pcm):
     fz = y.clone()
     fz[:, mask_valid:] = 0.0
     n_frames = 1 + t // hop
-    hann = torch.hann_window(4096, periodic=True, device=dev)
-    dft_entry(
-        "stft_mag", "audio_analysis_tpu/ops/pallas/melspec.py:453 (_kernel_dif_mag)",
-        lambda: ms.stft_mag(fz, n_fft=4096, hop_length=hop),
-        lambda: ms.stft_mag_plain(fz, n_fft=4096, hop_length=hop),
-        lambda: torch.stft(fz[0], 4096, hop, window=hann, center=True, pad_mode="constant",
-                           return_complex=True).abs(),
-        out_bytes=2049 * n_frames * 4, in_bytes=t * 4, frames=n_frames, n_fft=4096,
-        mel_nnz=0, iters=3,
-    )
+    res["stft_mag"] = mag_entry("stft_mag", fz, 4096, hop, iters=5)
+    # the direct route, at an n_fft the FFT does not take (4400 = 2^4 5^2 11)
+    res["stft_mag[direct, n_fft 4400]"] = mag_entry("stft_mag[direct, n_fft 4400]", fz, 4400,
+                                                    hop, iters=2)
+    if res["stft_mag[direct, n_fft 4400]"]["dft_route"] != "direct":
+        raise AssertionError("n_fft 4400 did not take the direct route")
 
     # medians of the a_max-normalised spectrogram over its valid frames
     spec = ms.stft_mag(fz, n_fft=4096, hop_length=hop)
@@ -442,26 +497,32 @@ def check_bf16(pcm):
 
 
 @contextlib.contextmanager
-def capture_bf16(captured):
+def capture_inputs(captured):
     """Within the block, record a copy of the first input of each kind that
-    the frontend passes to stft_mel_bf16 (``batch end-scan``: the call with
-    a ``frames`` prefix; ``batch classify``: the window grid) into
-    `captured` {tag: (windows, kwargs)}. The kernel still runs, and counts,
-    once per call."""
+    the fast batch path passes to stft_mel_bf16 (``batch end-scan``: the
+    call with a ``frames`` prefix; ``batch classify``: the window grid) and
+    to stft_mag (``batch``: the batch's detection signals, zeroed past each
+    recording's data end) into `captured` {tag: (kernel name, input,
+    kwargs)}. The kernels still run, and count, once per call."""
+    from audio_analysis_torch.detect import signal_noise
     from audio_analysis_torch.pipeline import frontend
 
-    kernel = frontend.stft_mel_bf16
+    bf16, mag = frontend.stft_mel_bf16, signal_noise.stft_mag
 
-    def recording(windows, **kw):
+    def recording_bf16(windows, **kw):
         tag = "batch end-scan" if kw.get("frames") is not None else "batch classify"
-        captured.setdefault(tag, (windows.clone(), dict(kw)))
-        return kernel(windows, **kw)
+        captured.setdefault(tag, ("stft_mel_bf16", windows.clone(), dict(kw)))
+        return bf16(windows, **kw)
 
-    frontend.stft_mel_bf16 = recording
+    def recording_mag(y, **kw):
+        captured.setdefault("batch", ("stft_mag", y.clone(), dict(kw)))
+        return mag(y, **kw)
+
+    frontend.stft_mel_bf16, signal_noise.stft_mag = recording_bf16, recording_mag
     try:
         yield captured
     finally:
-        frontend.stft_mel_bf16 = kernel
+        frontend.stft_mel_bf16, signal_noise.stft_mag = bf16, mag
 
 
 def counters():
@@ -471,6 +532,24 @@ def counters():
     return {"stft_mel": ms.stft_mel, "stft_mag": ms.stft_mag,
             "row_medians": md.row_medians, "col_medians": md.col_medians,
             "stft_mel_bf16": ms.stft_mel_bf16}
+
+
+DIRECT = ("stft_mel", "stft_mag")  # wrappers with a direct route, counted apart
+
+
+def reset_counts():
+    for name, w in counters().items():
+        w.launches = 0
+        if name in DIRECT:
+            w.direct_launches = 0
+
+
+def read_counts():
+    """Launches per kernel, and per DFT wrapper its direct route's
+    launches under ``<name>.direct``."""
+    got = {k: w.launches for k, w in counters().items()}
+    got.update({f"{k}.direct": counters()[k].direct_launches for k in DIRECT})
+    return got
 
 
 def require_launches(tag, launches, expect):
@@ -489,8 +568,7 @@ def run_cli(wav, model_dir, device):
 
     from audio_analysis_torch.cli.analyse import run
 
-    for w in counters().values():
-        w.launches = 0
+    reset_counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -498,7 +576,7 @@ def run_cli(wav, model_dir, device):
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in counters().items()}
+    launches = read_counts()
     return json.loads(buf.getvalue()), wall, launches
 
 
@@ -510,8 +588,7 @@ def run_batch_cli(wavs, models, device, timer=None):
 
     from audio_analysis_torch.cli.batch import run
 
-    for w in counters().values():
-        w.launches = 0
+    reset_counts()
     argv = ["-o", "--batch-size", "8", "--seed", "0", "--device", device]
     for m in models:
         argv += ["--bird-model", str(m)]
@@ -522,7 +599,7 @@ def run_batch_cli(wavs, models, device, timer=None):
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in counters().items()}
+    launches = read_counts()
     return json.loads(buf.getvalue()), wall, launches
 
 
@@ -656,7 +733,7 @@ def main():
         for knob in ("AAT_FAST", "AAT_PALLAS"):
             os.environ.pop(knob, None)
         exact_path = {"stft_mel": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
-                      "stft_mel_bf16": 0}
+                      "stft_mel_bf16": 0, "stft_mel.direct": 0, "stft_mag.direct": 0}
         runs = {}
         for tag in ("cold", "warm"):
             res, wall, launches = run_cli(wav, model_dir, "cuda")
@@ -703,11 +780,11 @@ def main():
             f"{len(backlog)} x {SECONDS} s WAVs, bird and pre TuiNets (bfloat16)")
         os.environ["AAT_FAST"] = "1"
         fast_path = {"stft_mel_bf16": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
-                     "stft_mel": 0}
+                     "stft_mel": 0, "stft_mel.direct": 0, "stft_mag.direct": 0}
         batch_runs, captured = {}, {}
         for tag in ("cold", "warm"):
             timer = StageTimer()
-            with capture_bf16(captured) if tag == "cold" else contextlib.nullcontext():
+            with capture_inputs(captured) if tag == "cold" else contextlib.nullcontext():
                 res, wall, batch_launches = run_batch_cli(wavs, models, "cuda", timer)
             batch_runs[tag] = res
             log(json.dumps({"batch_run": tag, "device": "cuda", "recordings": len(res),
@@ -722,10 +799,14 @@ def main():
             raise AssertionError(f"unexpected batch durations: {durations}")
         if not all(r["analysis"]["chirps"]["signals"] for r in batch_runs["cold"]):
             raise AssertionError("a batch recording has no signals")
-        if sorted(captured) != ["batch classify", "batch end-scan"]:
-            raise AssertionError(f"stft_mel_bf16 inputs captured: {sorted(captured)}")
-        for tag, (x, kw) in sorted(captured.items()):
-            kernels[f"stft_mel_bf16[{tag}]"] = bf16_entry(f"stft_mel_bf16[{tag}]", x, kw)
+        if sorted(captured) != ["batch", "batch classify", "batch end-scan"]:
+            raise AssertionError(f"kernel inputs captured: {sorted(captured)}")
+        for tag, (kernel, x, kw) in sorted(captured.items()):
+            name = f"{kernel}[{tag}]"
+            if kernel == "stft_mag":  # [8, 2.88M], each recording's own silent tail
+                kernels[name] = mag_entry(name, x, kw["n_fft"], kw["hop_length"], iters=3)
+            else:
+                kernels[name] = bf16_entry(name, x, kw)
         del captured
 
         # a backlog of three batches through the pipelined stream
@@ -766,6 +847,11 @@ def main():
                                  "backlog_fast": backlog_launches[base]}} | {
             k: m.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "max_rel", "shape")})
+        if base in DIRECT:  # the float64 DFTs: which route, and the direct route's count
+            direct = f"{base}.direct"
+            out[-1] |= {"dft_route": m["dft_route"], "library_ms_f64": m.get("library_ms_f64"),
+                        "direct_launches": batch_launches[direct] if fast_path[base]
+                        else launches[direct]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))
     log(f"card: {card_line()}")

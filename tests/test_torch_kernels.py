@@ -34,12 +34,17 @@ def _max_rel(got, gt):
     return (np.abs(got - gt) / den).max()
 
 
-# (sr, n_fft, hop, n_mels, fmin, fmax, break, samples)
+# (sr, n_fft, hop, n_mels, fmin, fmax, break, samples): the fft route at
+# n_fft 512, 480, 4096 (classify), 4800 (end-scan), 4410 (the end-scan at
+# 44.1 kHz, radix 7) and the odd 441; the direct route at 4400 (prime 11)
 MEL_GEOMS = {
     "nfft512": (16000, 512, 160, 40, 50.0, 7000.0, 1750.0, 4000),
     "nfft480": (4800, 480, 120, 24, 50.0, 2000.0, 1750.0, 4800),
     "classify": (48000, 4096, 640, 160, 50.0, 11000.0, 1750.0, 144000),
     "endscan": (48000, 4800, 281, 120, 50.0, 11000.0, 1750.0, 96000),
+    "nfft4410": (44100, 4410, 281, 120, 50.0, 11000.0, 1750.0, 88200),
+    "nfft441": (4410, 441, 110, 24, 50.0, 2000.0, 1750.0, 4410),
+    "direct4400": (44000, 4400, 281, 120, 50.0, 11000.0, 1750.0, 44000),
 }
 
 
@@ -47,35 +52,84 @@ MEL_GEOMS = {
 @pytest.mark.parametrize("geom", list(MEL_GEOMS))
 @pytest.mark.parametrize("power", [1.0, 2.0])
 def test_stft_mel_kernel_matches_plain(cuda_device, rng, geom, power):
+    """Limit 1e-6 max rel: kernel and plain version take the DFT in float64
+    (~1e-15 apart) and round alike to float32, so they differ by at most a
+    float32 rounding flip. No atomics, so two launches agree bit for bit."""
     sr, n_fft, hop, n_mels, fmin, fmax, brk, s = MEL_GEOMS[geom]
     wins = torch.from_numpy(rng.randn(3, s).astype(np.float32)).to(cuda_device)
     kw = dict(sr=sr, n_fft=n_fft, hop_length=hop, n_mels=n_mels, fmin=fmin, fmax=fmax,
               break_freq=brk, power=power)
-    before = ms.stft_mel.launches
+    direct = ms.fft_radices(n_fft) is None
+    before = (ms.stft_mel.launches, ms.stft_mel.direct_launches)
     got = ms.stft_mel(wins, **kw)
-    assert ms.stft_mel.launches == before + 1
+    assert (ms.stft_mel.launches, ms.stft_mel.direct_launches) == (before[0] + 1,
+                                                                   before[1] + direct)
     ref = ms.stft_mel_plain(wins, **kw)
-    assert got.shape == ref.shape == (3, n_mels, 1 + s // hop)
-    assert _max_rel(got, ref) < 1e-5
+    assert got.shape == ref.shape == (3, n_mels, ms.stft_frames(s, n_fft, hop))
+    assert _max_rel(got, ref) <= 1e-6
+    assert torch.equal(got, ms.stft_mel(wins, **kw))
     part = ms.stft_mel(wins, frames=7, **kw)
-    assert _max_rel(part, ref[..., :7]) < 1e-5
+    assert _max_rel(part, ref[..., :7]) <= 1e-6
     slaney = ms.stft_mel(wins, htk=False, **kw)
-    assert _max_rel(slaney, ms.stft_mel_plain(wins, htk=False, **kw)) < 1e-5
+    assert _max_rel(slaney, ms.stft_mel_plain(wins, htk=False, **kw)) <= 1e-6
+
+
+# (n_fft, hop): 48000 samples give an odd frame count at hop 281 (171)
+MAG_GEOMS = [(4096, 281), (480, 120), (4800, 281), (4410, 256), (512, 128), (441, 100),
+             (4400, 281)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_fft,hop", [(4096, 281), (480, 120)])
+@pytest.mark.parametrize("n_fft,hop", MAG_GEOMS)
 def test_stft_mag_kernel_matches_plain(cuda_device, rng, n_fft, hop):
     y = torch.from_numpy((0.1 * rng.randn(2, 48000)).astype(np.float32)).to(cuda_device)
     y[1, 30000:] = 0.0  # a silent tail: exact zeros on both sides
-    before = ms.stft_mag.launches
+    direct = ms.fft_radices(n_fft) is None
+    before = (ms.stft_mag.launches, ms.stft_mag.direct_launches)
     got = ms.stft_mag(y, n_fft=n_fft, hop_length=hop)
-    assert ms.stft_mag.launches == before + 1
+    assert (ms.stft_mag.launches, ms.stft_mag.direct_launches) == (before[0] + 1,
+                                                                   before[1] + direct)
     ref = ms.stft_mag_plain(y, n_fft=n_fft, hop_length=hop)
-    assert got.shape == ref.shape == (2, n_fft // 2 + 1, 1 + 48000 // hop)
-    assert _max_rel(got, ref) < 1e-5
+    assert got.shape == ref.shape == (2, n_fft // 2 + 1, ms.stft_frames(48000, n_fft, hop))
+    assert _max_rel(got, ref) <= 1e-6
+    assert torch.equal(got, ms.stft_mag(y, n_fft=n_fft, hop_length=hop))
     tail = slice(1 + (30000 + n_fft // 2) // hop, None)
     assert not bool(got[1, :, tail].any())
+
+
+@pytest.mark.cuda
+def test_stft_mag_batch_of_silent_tails(cuda_device, rng):
+    """Eight signals in one launch, each silent from its own point (one not
+    at all, one from the start): exact zeros past each tail, an odd frame
+    count (1 + 96200 // 281 = 343 frames: 43 tiles of 8, the last of 7, so
+    its last pair has one frame), and the plain version's values."""
+    y = (0.1 * rng.randn(8, 96200)).astype(np.float32)
+    tails = [96200, 90000, 61234, 48000, 30001, 12345, 2000, 0]
+    for row, at in zip(y, tails):
+        row[at:] = 0.0
+    y = torch.from_numpy(y).to(cuda_device)
+    got = ms.stft_mag(y, n_fft=4096, hop_length=281)
+    ref = ms.stft_mag_plain(y, n_fft=4096, hop_length=281)
+    assert got.shape == ref.shape == (8, 2049, 343)
+    assert _max_rel(got, ref) <= 1e-6
+    for b, at in enumerate(tails):
+        silent = 1 + (at + 2048) // 281
+        assert not bool(got[b, :, silent:].any())
+        assert not bool(ref[b, :, silent:].any())
+
+
+@pytest.mark.cuda
+def test_no_route_fits_raises(cuda_device):
+    """n_fft 32768 fits neither route's shared memory: ValueError, never the
+    plain version."""
+    x = torch.zeros(1, 40000, device=cuda_device)
+    before = (ms.stft_mag.launches, ms.stft_mel.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        ms.stft_mag(x, n_fft=32768, hop_length=4096)
+    with pytest.raises(ValueError, match="shared memory"):
+        ms.stft_mel(x, sr=48000, n_fft=32768, hop_length=4096, n_mels=40, fmin=50.0,
+                    fmax=11000.0)
+    assert (ms.stft_mag.launches, ms.stft_mel.launches) == before
 
 
 @pytest.mark.cuda
