@@ -3,15 +3,19 @@
 //
 // row_medians replaces the Pallas kernel audio_analysis_tpu/ops/pallas/
 // medians.py :: _kernel_row_medians; col_medians replaces
-// medians.py :: _kernel_col_medians. Both run the same rank search as
-// medians.py :: _search (and the XLA path detect/signal_noise.py ::
-// _masked_medians_rowcol), so the result is bit-identical to np.median:
+// medians.py :: _kernel_col_medians. Both find the same two order
+// statistics as medians.py :: _search (and the XLA path
+// detect/signal_noise.py :: _masked_medians_rowcol), so the result is
+// bit-identical to np.median:
 //
-//   - the values are read as int32 bit patterns (monotone for x >= 0);
-//     masked entries (row columns >= nvf[b]) become the +inf pattern once;
-//   - 31 binary narrowing steps over [0, 2^31 - 1], each counting x <= m
-//     with a reduction over the line, find the lower middle value (rank
-//     (n-1)/2) exactly;
+//   - the values are read as int32 bit patterns (monotone for x >= 0, and
+//     bit 31 is always 0); masked entries (row columns >= nvf[b]) become
+//     the +inf pattern once;
+//   - the lower middle value (rank (n-1)/2) is found exactly: by a radix
+//     select on the rows (four passes over 8-bit digits, most significant
+//     first: a histogram of the entries that match the digits chosen so
+//     far, then a scan picks the digit whose bucket holds the rank), and
+//     by 31 binary narrowing steps, each counting x <= m, on the columns;
 //   - a successor pass gives the upper middle value (rank n/2): the lower
 //     one when its count already covers that rank, else the least value
 //     above it;
@@ -19,16 +23,20 @@
 //
 // Design: a line (a row over T columns, or a column over all rows) is
 // staged once in shared memory and searched there, so device memory is read
-// once per element. Row kernel: one block per row, block-wide reductions.
-// Column kernel: one warp per column, a block stages a [TC, rows] tile
-// transposed (columns contiguous) and each warp reduces with shuffles. When
-// a line does not fit in shared memory the same search reads it from
-// device memory instead (still exact, slower).
+// once per element. Row kernel: one block of 256 threads per row; each
+// radix pass builds one 256-bin histogram per warp with shared-memory
+// atomics (integer counts, so the order of the atomics changes nothing),
+// and thread d sums digit d over the warps and takes part in a block-wide
+// exclusive scan: 4 passes and ~4 barriers each, where the binary search
+// took 32 passes of 3 barriers. Column kernel: one warp per column, a block
+// stages a [TC, rows] tile transposed (columns contiguous) and each warp
+// reduces with shuffles. When a line does not fit in shared memory the same
+// search reads it from device memory instead (still exact, slower).
 //
-// What bounds it: the bytes (the spectrogram read once; 31 + 1 passes run
-// over shared memory). Left for later: a TMA bulk copy of each row, a
-// radix select (four 8-bit passes instead of 32 one-bit passes), and one
-// kernel that produces both medians from a single read.
+// What bounds it: the bytes (the spectrogram read once; the passes run
+// over shared memory). Left for later: the radix select for the columns,
+// a TMA bulk copy of each row, and one kernel that produces both medians
+// from a single read.
 
 #include <cuda_runtime.h>
 
@@ -38,6 +46,9 @@ constexpr int INF_BITS = 0x7F800000;
 constexpr int TOP = 0x7FFFFFFF;
 constexpr int N_NARROW = 31;
 constexpr int ROW_THREADS = 256;
+constexpr int RADIX = 256;  // 8-bit digits; thread d of a row block owns digit d
+constexpr int ROW_WARPS = ROW_THREADS / 32;
+static_assert(ROW_THREADS == RADIX, "the row kernel's scan gives each digit one thread");
 constexpr int COL_WARPS = 16;
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -98,12 +109,53 @@ struct Line {
   }
 };
 
+// The value of rank k among line[0 .. T) (bits), by a most-significant-
+// digit radix select. Every thread gets it.
+__device__ int radix_select(const Line& line, int T, int k, int (*hist)[RADIX], int* red,
+                            int* pick) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  int prefix = 0, mask = 0;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = threadIdx.x; i < ROW_WARPS * RADIX; i += ROW_THREADS) (&hist[0][0])[i] = 0;
+    __syncthreads();
+    for (int j = threadIdx.x; j < T; j += ROW_THREADS) {
+      const int v = line.at(j);
+      if ((v & mask) == prefix) atomicAdd(&hist[wid][(v >> shift) & (RADIX - 1)], 1);
+    }
+    __syncthreads();
+    int c = 0;
+#pragma unroll
+    for (int q = 0; q < ROW_WARPS; ++q) c += hist[q][threadIdx.x];
+    int incl = c;  // inclusive scan over the block: warps, then warp totals
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (lane == 31) red[wid] = incl;
+    __syncthreads();
+    int excl = incl - c;
+    for (int q = 0; q < wid; ++q) excl += red[q];
+    if (excl <= k && k < excl + c) {  // exactly one digit's bucket holds rank k
+      pick[0] = threadIdx.x;
+      pick[1] = excl;
+    }
+    __syncthreads();
+    prefix |= pick[0] << shift;
+    mask |= (RADIX - 1) << shift;
+    k -= pick[1];
+  }
+  return prefix;
+}
+
 // grid (bins, B), block ROW_THREADS; out [B, bins]
 __global__ void __launch_bounds__(ROW_THREADS)
 row_medians_kernel(const int* __restrict__ spec, const int* __restrict__ nvf,
                    float* __restrict__ out, int bins, int T, int staged) {
   extern __shared__ int buf[];
+  __shared__ int hist[ROW_WARPS][RADIX];
   __shared__ int red[33];
+  __shared__ int pick[2];
   const int r = blockIdx.x, b = blockIdx.y;
   const int nv = min(nvf[b], T);
   const int* src = spec + ((long)b * bins + r) * T;
@@ -113,15 +165,8 @@ row_medians_kernel(const int* __restrict__ spec, const int* __restrict__ nvf,
     __syncthreads();
     line = Line{buf, 1, T, T};
   }
-  const int k1 = (nv - 1) / 2, k2 = nv / 2;
-  int lo = 0, hi = TOP;
-  for (int it = 0; it < N_NARROW; ++it) {
-    const int m = lo + (hi - lo) / 2;
-    int c = 0;
-    for (int j = threadIdx.x; j < T; j += blockDim.x) c += line.at(j) <= m;
-    c = block_sum(c, red);
-    if (c >= k1 + 1) hi = m; else lo = m + 1;
-  }
+  const int k2 = nv / 2;
+  const int lo = radix_select(line, T, (nv - 1) / 2, hist, red, pick);
   int c = 0, s = INF_BITS;
   for (int j = threadIdx.x; j < T; j += blockDim.x) {
     const int v = line.at(j);
@@ -191,8 +236,10 @@ int aat_row_medians(const float* spec, const int* nvf, float* out, int B, int bi
   if (B <= 0 || bins <= 0 || T <= 0) return 0;
   if (B > 65535) return (int)cudaErrorInvalidValue;
   const size_t need = sizeof(int) * (size_t)T;
-  // the block's static reduction buffer shares the same shared memory
-  const int staged = need + 64 * sizeof(int) <= (size_t)max_smem_optin();
+  // the block's static histograms and reduction buffers share the same
+  // shared memory
+  const size_t fixed = sizeof(int) * ((size_t)ROW_WARPS * RADIX + 64);
+  const int staged = need + fixed <= (size_t)max_smem_optin();
   const size_t smem = staged ? need : 0;
   cudaFuncSetAttribute(row_medians_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);

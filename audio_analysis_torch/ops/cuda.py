@@ -41,6 +41,8 @@ _SIGNATURES = {
                             _I, _P],
     "aat_stft_mag_direct": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _F, _I, _P],
     "aat_stft_mel_bf16": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "aat_stft_mel_dif_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _F, _P],
     "aat_row_medians": [_P, _P, _P, _I, _I, _I, _P],
     "aat_col_medians": [_P, _P, _I, _I, _I, _P],
 }

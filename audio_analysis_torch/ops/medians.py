@@ -2,9 +2,11 @@
 
 ``row_medians`` replaces the Pallas kernel
 ``ops/pallas/medians.py::_kernel_row_medians`` and ``col_medians`` replaces
-``_kernel_col_medians`` (CUDA source: ``csrc/medians.cu``): the kernels run
-the same 31-step rank search on int32 bit patterns with an upper-middle
-successor pass, so they are bit-identical to ``np.median``. Each wrapper
+``_kernel_col_medians`` (CUDA source: ``csrc/medians.cu``): the kernels find
+the lower middle value on int32 bit patterns exactly (the rows by a radix
+select over four 8-bit digits, the columns by the 31-step binary rank
+search) and the upper middle value by a successor pass, so they are
+bit-identical to ``np.median``. Each wrapper
 launches its kernel for a CUDA tensor and uses the plain PyTorch version
 (a sort) for a CPU tensor, and counts its launches in ``.launches``.
 ``torch.median`` is not a substitute: it returns the lower middle value.

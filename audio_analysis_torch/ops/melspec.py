@@ -24,13 +24,19 @@ error at which the mask flips bits); in float64 the kernel and its plain
 version agree to float32 rounding.
 
 ``stft_mel_bf16`` is the fast frontend level's DFT -> mel (AAT_FAST=1 /
-AAT_PALLAS=1): it replaces the direct-DFT Pallas kernel
-``ops/pallas/melspec.py::_kernel`` and serves ``_kernel_dif``'s bf16
-(exact=0) level too (CUDA source: ``csrc/stft_bf16.cu``). Its contract is
-bf16 operands with float32 accumulation, about 1-2% relative; the
-classify frontend and the end-scan take it at every n_fft and frame count.
+AAT_PALLAS=1), bf16 operands with float32 sums, about 1-2% relative (CUDA
+source: ``csrc/stft_bf16.cu``). ``bf16_route`` picks its route as the JAX
+package's ``_use_dif`` does, at each call: ``dif``, the factored DFT of
+``_kernel_dif`` at exact=0 (an L-level decimation-in-frequency split in
+float32, then bf16 leaf DFTs on the tensor cores), for n_fft % 8 == 0 and
+n_fft >= 64; ``direct``, the DFT-as-GEMM of ``_kernel``, for any other
+n_fft or when AAT_PALLAS_ALG=matmul. The JAX package's 320-frame cap is
+its VMEM limit and has no counterpart here. Each route has its plain
+version (``stft_mel_dif_bf16_plain``, ``stft_mel_bf16_plain``), and the
+wrapper counts the direct route's launches in ``.direct_launches``.
 """
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -333,18 +339,208 @@ def stft_mel_bf16_plain(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The dif route: _kernel_dif's factored DFT at exact=0
+# ---------------------------------------------------------------------------
+
+DIF_MAX_LEVELS = 5  # the kernel is built for 3, 4 and 5 levels
+DIF_FRAMES = 16  # frames a block of the dif kernel
+DIF_K_CHUNK = 64  # leaf positions a K chunk; rows of LDD = 72 bf16
+DIF_GROUP = 8  # leaves a group, one per warp
+DIF_BIN_TILE = 128  # most bins of a leaf a pass
+
+
+def bf16_route(n_fft: int) -> str:
+    """``dif`` or ``direct``: the JAX package's ``_use_dif``, read at each
+    call (AAT_PALLAS_ALG=matmul forces the direct route)."""
+    if os.environ.get("AAT_PALLAS_ALG", "").strip().lower() == "matmul":
+        return "direct"
+    return "dif" if n_fft % 8 == 0 and n_fft >= 64 else "direct"
+
+
+def dif_levels(n_fft: int, bins_used: int) -> int:
+    """The split's depth, as the JAX package's ``_dif_levels``: 3 levels,
+    deepened while a leaf would carry more than 128 bins, n_fft divides
+    and leaves keep at least 128 points."""
+    levels = 3
+    while (-(-bins_used // (1 << levels)) > 128 and n_fft % (1 << (levels + 1)) == 0
+           and (n_fft >> (levels + 1)) >= 128):
+        levels += 1
+    return levels
+
+
+def leaf_off(levels: int) -> tuple:
+    """Leaf b holds bins 2^levels j + leaf_off(levels)[b]: the bit reversal
+    of b (the JAX package's ``_leaf_off``)."""
+    return tuple(int(format(b, f"0{levels}b")[::-1], 2) for b in range(1 << levels))
+
+
+def dif_leaf_width(bins_per_leaf: int) -> int:
+    """Columns of a leaf's DFT matrix: a multiple of the k16 step up to 128
+    bins, else of the kernel's 128-bin tile (zero columns change nothing)."""
+    tile = 16 if bins_per_leaf <= DIF_BIN_TILE else DIF_BIN_TILE
+    return -(-bins_per_leaf // tile) * tile
+
+
+def dif_smem(hop: int, n_fft: int, bl: int) -> int:
+    """Shared memory of one dif block, in bytes, as ``csrc/stft_bf16.cu``
+    sizes it: two stages of the 8 leaves' chunks and of the C and S
+    chunks, the p tile and the bf16 PCM span of 16 frames."""
+    tbw = min(bl, DIF_BIN_TILE)
+    ldd = DIF_K_CHUNK + 8
+    span = -(-((DIF_FRAMES - 1) * hop + n_fft) // 8) * 8
+    return 2 * (2 * DIF_GROUP * 2 * DIF_FRAMES * ldd + 4 * tbw * ldd
+                + DIF_FRAMES * (DIF_GROUP * tbw + 8) + span)
+
+
+def _dif_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk, device):
+    """The dif route's constants and geometry: (win [n_fft] float32, twc,
+    tws [n_fft - (n_fft >> L)] float32, ct, st [bl, m_pad] bf16, melt
+    [mel_rows, 2^L bl] bf16, levels, nb, bl). The window and the twiddles
+    are built in float64 and rounded to float32: level l's table
+    cos/sin(2 pi p / (n_fft >> l)), p < n_fft >> (l + 1), starts at
+    n_fft - (n_fft >> l) (``dif_twiddle_offset``), as the JAX package's
+    per-level tables; the leaf DFT matrices cos/sin(2 pi n j
+    / m_leaf), transposed, are rounded to float32 and then to bf16, zero
+    past m_leaf and past nb bins a leaf; the leaf-permuted mel matrix
+    (``_mel_mat_dif``) row b bl + j carries bin 2^L j + leaf_off[b],
+    transposed, zero rows past n_mels."""
+    sr, n_mels, n_fft, htk = int(sr), int(n_mels), int(n_fft), bool(htk)
+    fmin, fmax, break_freq = float(fmin), float(fmax), float(break_freq)
+    bu = mel_support_bins(sr, n_mels, fmin, fmax, n_fft, break_freq, htk)
+    levels = dif_levels(n_fft, bu)
+    rows = next((r for r in BF16_MEL_ROWS if r >= n_mels), None)
+    if rows is None:
+        raise ValueError(f"stft_mel_bf16: {n_mels} mels, the kernel takes at most "
+                         f"{BF16_MEL_ROWS[-1]}")
+    if levels > DIF_MAX_LEVELS:
+        raise ValueError(f"stft_mel_bf16: n_fft {n_fft} needs {levels} levels, the dif "
+                         f"kernel takes at most {DIF_MAX_LEVELS}")
+    n_leaves = 1 << levels
+    m_leaf = n_fft // n_leaves
+    nb = -(-bu // n_leaves)
+    bl = dif_leaf_width(nb)
+    m_pad = -(-m_leaf // 16) * 16
+
+    def build_f32():
+        ang = np.concatenate([2 * np.pi * np.arange(n_fft >> (lvl + 1)) / (n_fft >> lvl)
+                              for lvl in range(levels)])
+        return (get_window_np("hann", n_fft, periodic=True).astype(np.float32),
+                np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
+
+    def build_bf16():
+        leaf = 2.0 * np.pi * np.outer(np.arange(nb), np.arange(m_leaf)) / m_leaf
+        ct = np.zeros((bl, m_pad), np.float32)
+        st = np.zeros((bl, m_pad), np.float32)
+        ct[:nb, :m_leaf] = np.cos(leaf)
+        st[:nb, :m_leaf] = np.sin(leaf)
+        fb = filterbank_np(sr, n_mels, fmin, fmax, n_fft, break_freq, htk).astype(np.float32)
+        melt = np.zeros((rows, n_leaves * bl), np.float32)
+        for b, off in enumerate(leaf_off(levels)):
+            k = off + n_leaves * np.arange(bl)
+            valid = k < fb.shape[1]
+            melt[:n_mels, b * bl : b * bl + int(valid.sum())] = fb[:, k[valid]]
+        return ct, st, melt
+
+    key = ("dif", sr, n_mels, fmin, fmax, n_fft, break_freq, htk)
+    win, twc, tws = _device_consts(key + ("f32",), build_f32, device)
+    ct, st, melt = _device_consts(key + ("bf16",), build_bf16, device, dtype=torch.bfloat16)
+    return win, twc, tws, ct, st, melt, levels, nb, bl
+
+
+def dif_twiddle_offset(n_fft: int, level: int) -> int:
+    """Where level `level`'s twiddle table starts in the dif route's
+    twiddles: after the tables of n_fft/2, n_fft/4, ... entries."""
+    return n_fft - (n_fft >> level)
+
+
+def dif_tree(x, twc, tws, levels):
+    """The JAX package's ``_dif_tree`` on [..., n_fft] float32 frames: the
+    2^levels leaves [(real, imag or None), ...] in tree-emit order (the sum
+    branch first at every level)."""
+    branches = [(x, None)]
+    n_fft = x.shape[-1]
+    q = n_fft // 2
+    for lvl in range(levels):
+        off = dif_twiddle_offset(n_fft, lvl)
+        c, s = twc[off:off + q], tws[off:off + q]
+        nxt = []
+        for r, i in branches:
+            a, b = r[..., :q], r[..., q:]
+            if i is None:
+                nxt += [(a + b, None), ((a - b) * c, (b - a) * s)]
+            else:
+                ia, ib = i[..., :q], i[..., q:]
+                dr, di = a - b, ia - ib
+                nxt += [(a + b, ia + ib), (dr * c + di * s, di * c - dr * s)]
+        branches = nxt
+        q //= 2
+    return branches
+
+
+def _bf16_round(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def stft_mel_dif_bf16_plain(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
+                            break_freq=1750.0, power=2.0, htk=True, frames=None):
+    """Plain PyTorch version of the dif route, step for step as
+    ``_kernel_dif`` at exact=0: bf16-rounded frames times the float32
+    window, the float32 split (``dif_tree``), each leaf rounded to bf16 and
+    multiplied by the bf16 leaf matrices in float32 (a product of two bf16
+    values is exact in float32, so only the order of summation differs from
+    the kernel), |X|^power rounded to bf16, the leaf's mel rows. Loops over
+    chunks of windows and frames to bound memory."""
+    n, s = windows.shape
+    n_fft = int(n_fft)
+    n_out = _frame_count(1 + s // hop_length, frames)
+    win, twc, tws, ct, st, melt, levels, _, bl = _dif_consts(
+        sr, n_mels, fmin, fmax, n_fft, break_freq, htk, windows.device)
+    m_leaf = n_fft >> levels
+    cm = ct[:, :m_leaf].to(torch.float32).T  # [m_leaf, bl]
+    sm = st[:, :m_leaf].to(torch.float32).T
+    mel = melt[:n_mels].to(torch.float32).T  # [2^L bl, n_mels]
+    half = n_fft // 2
+    padded = torch.nn.functional.pad(windows.to(torch.float32), (half, n_fft - half))
+    view = padded.unfold(-1, n_fft, hop_length)[:, :n_out]  # [n, n_out, n_fft]
+    out = torch.empty((n, n_mels, n_out), dtype=torch.float32, device=windows.device)
+    fc = max(1, min(n_out, _PLAIN_STEP // n_fft))
+    wc = max(1, _PLAIN_STEP // (fc * n_fft))
+    for w0 in range(0, n, wc):
+        for f0 in range(0, n_out, fc):
+            x = _bf16_round(view[w0:w0 + wc, f0:f0 + fc]) * win
+            acc = None
+            for b, (r, i) in enumerate(dif_tree(x, twc, tws, levels)):
+                rb = _bf16_round(r)
+                if i is None:
+                    xr, xi = rb @ cm, -(rb @ sm)
+                else:
+                    ib = _bf16_round(i)
+                    xr = rb @ cm + ib @ sm
+                    xi = ib @ cm - rb @ sm
+                p = xr * xr + xi * xi
+                if power == 1.0:
+                    p = torch.sqrt(p)
+                elif power != 2.0:
+                    p = torch.pow(p, power / 2.0)
+                t = _bf16_round(p) @ mel[b * bl:(b + 1) * bl]
+                acc = t if acc is None else acc + t
+            out[w0:w0 + wc, :, f0:f0 + fc] = acc.transpose(1, 2)
+    return out
+
+
 def stft_mel_bf16(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
                   break_freq=1750.0, power=2.0, htk=True, frames=None):
     """[N, S] float32 PCM windows -> [N, n_mels, frames] mel spectrograms
     through the bf16 tensor cores (the fast frontend level's contract: bf16
-    operands, float32 accumulation, ~1% relative). Same framing and
-    arguments as ``stft_mel``."""
+    operands, float32 accumulation, ~1% relative), on the route
+    ``bf16_route`` picks. Same framing and arguments as ``stft_mel``."""
+    kw = dict(sr=sr, n_fft=n_fft, hop_length=hop_length, n_mels=n_mels, fmin=fmin,
+              fmax=fmax, break_freq=break_freq, power=power, htk=htk, frames=frames)
+    route = bf16_route(int(n_fft))
     if windows.device.type == "cpu":
-        return stft_mel_bf16_plain(
-            windows, sr=sr, n_fft=n_fft, hop_length=hop_length, n_mels=n_mels,
-            fmin=fmin, fmax=fmax, break_freq=break_freq, power=power, htk=htk,
-            frames=frames,
-        )
+        plain = stft_mel_dif_bf16_plain if route == "dif" else stft_mel_bf16_plain
+        return plain(windows, **kw)
     cuda.require_cuda(windows, "stft_mel_bf16")
     if windows.dim() != 2:
         raise ValueError(f"stft_mel_bf16: expected [N, S] windows, got {tuple(windows.shape)}")
@@ -352,17 +548,33 @@ def stft_mel_bf16(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
         raise ValueError(f"stft_mel_bf16: power must be positive, got {power}")
     n, s = windows.shape
     n_out = _frame_count(1 + s // hop_length, frames)
-    wr, wi, melt, _ = _bf16_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk,
-                                   windows.device)
     out = torch.empty((n, n_mels, n_out), dtype=torch.float32, device=windows.device)
-    rc = cuda.library().aat_stft_mel_bf16(
-        windows.data_ptr(), wr.data_ptr(), wi.data_ptr(), melt.data_ptr(), out.data_ptr(),
-        n, s, int(n_fft), wr.shape[1], int(hop_length), n_out, wr.shape[0], melt.shape[0],
-        int(n_mels), float(power), cuda.stream_of(windows),
-    )
+    lib = cuda.library()
+    if route == "dif":
+        win, twc, tws, ct, st, melt, levels, nb, bl = _dif_consts(
+            sr, n_mels, fmin, fmax, n_fft, break_freq, htk, windows.device)
+        if dif_smem(int(hop_length), int(n_fft), bl) > lib.aat_smem_optin():
+            raise ValueError(f"stft_mel_bf16: hop {hop_length} and n_fft {n_fft}: a block's "
+                             "PCM span does not fit in shared memory")
+        rc = lib.aat_stft_mel_dif_bf16(
+            windows.data_ptr(), win.data_ptr(), twc.data_ptr(), tws.data_ptr(), ct.data_ptr(),
+            st.data_ptr(), melt.data_ptr(), out.data_ptr(), n, s, int(n_fft), levels,
+            ct.shape[1], int(hop_length), n_out, nb, bl, melt.shape[0], int(n_mels),
+            float(power), cuda.stream_of(windows),
+        )
+    else:
+        wr, wi, melt, _ = _bf16_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk,
+                                       windows.device)
+        rc = lib.aat_stft_mel_bf16(
+            windows.data_ptr(), wr.data_ptr(), wi.data_ptr(), melt.data_ptr(), out.data_ptr(),
+            n, s, int(n_fft), wr.shape[1], int(hop_length), n_out, wr.shape[0], melt.shape[0],
+            int(n_mels), float(power), cuda.stream_of(windows),
+        )
+        stft_mel_bf16.direct_launches += 1
     cuda.check(rc, "stft_mel_bf16")
     stft_mel_bf16.launches += 1
     return out
 
 
 stft_mel_bf16.launches = 0
+stft_mel_bf16.direct_launches = 0

@@ -5,7 +5,7 @@ package's pipeline/frontend.py::spectrogram_grid).
 Normalise -> framed DFT -> mel -> dB -> mean-sub -> channels. The DFT -> mel
 runs at one of two levels (``frontend_level``): ``exact``, the float64
 ``stft_mel`` kernel, or ``fast``, the bf16 tensor-core ``stft_mel_bf16``
-kernel (the AAT_FAST throughput preset).
+kernel (the AAT_FAST throughput preset; its dif route for n_fft % 8 == 0).
 """
 
 import logging
@@ -38,8 +38,9 @@ def frontend_level() -> str:
       AAT_FAST, else ``exact``).
 
     Unlike the JAX package, the fast level does not degrade on the CPU:
-    there it runs the bf16 kernel's plain version. AAT_PALLAS_ALG has no
-    counterpart: every fast shape takes the one direct kernel."""
+    there it runs the bf16 kernel's plain version. AAT_PALLAS_ALG=matmul
+    sends the fast level to the direct DFT, as in the JAX package
+    (``ops/melspec.py::bf16_route``, read at each call)."""
     global _WARNED_BAD_LEVEL
     raw = os.environ.get("AAT_PALLAS", "").strip().lower()
     if raw in _FAST_WORDS:

@@ -20,6 +20,13 @@
    stft_mag) must agree to max rel 1e-6 and bit for bit across two
    launches; stft_mag is timed beside torch.stft in float32 and in float64,
    and once more at n_fft 4400 (2^4 5^2 11), which takes the direct route;
+   row_medians bit for bit against its plain version and np.median;
+   stft_mel_bf16 against the plain version of its route (``dif`` for
+   n_fft % 8 == 0, ``direct`` for n_fft 500) to max rel 1e-2 and bit for bit
+   across two launches, with its max rel against the float64 plain version
+   for information, and at classify [64, 144000] and the end-scan
+   [1, 2.88M] timed beside the direct route at the same shape
+   (AAT_PALLAS_ALG=matmul) and the float64 FFT ``stft_mel``;
 5. the exact level's single-recording path: runs the port's CLI
    (``analyse -o FILE --bird-model DIR --seed 0``) in this process on the
    card, cold and then warm, with every kernel's launch count set to 0 just
@@ -33,12 +40,13 @@
 6. the fast level's batch path: runs the batch CLI (``AAT_FAST=1``,
    ``batch -o --bird-model B --bird-model PRE --batch-size 8 --seed 0`` on
    the first eight WAVs) cold and then warm with the counts reset around each
-   run, requires stft_mel_bf16 twice per batch, stft_mel and the direct
+   run, requires stft_mel_bf16 twice per batch, stft_mel and every direct
    route never, prints the wall time, audio seconds per second and stage
-   times, and holds stft_mel_bf16 and stft_mag against their plain versions
-   on the inputs the cold batch gave them (the [8, T] end-scan, the batch's
-   padded classify grid, and the [8, T] detection signals, each zeroed
-   past its own data end);
+   times, and holds stft_mel_bf16, stft_mag and row_medians against their
+   plain versions on the inputs the cold batch gave them (the [8, T]
+   end-scan and the batch's padded classify grid, each also timed beside
+   the direct route and stft_mel; the [8, T] detection signals, each zeroed
+   past its own data end; the [8, 2049, T] normalised spectrogram);
    then runs a backlog of 24 WAVs (three batches through the pipelined
    stream) and prints its audio seconds per second over the whole run,
    profiles one more warm batch, and runs the first four WAVs with
@@ -323,6 +331,36 @@ def mag_entry(name, y, n_fft, hop, iters):
     )
 
 
+def row_medians_entry(name, spec, nvf):
+    """row_medians on `spec` [B, bins, T] over the first nvf[b] columns,
+    bit for bit against its plain version (and, for the first recording,
+    np.median), with its time and bound (the spectrogram read once, the
+    medians written once); returns the measurement."""
+    import torch
+
+    from audio_analysis_torch.ops import medians as md
+
+    got, ref = md.row_medians(spec, nvf), md.row_medians_plain(spec, nvf)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{name}: {int((got != ref).sum())} medians differ from the "
+                             "plain version")
+    nv0 = int(nvf[0])
+    np_row = np.median(spec[0, :, :nv0].cpu().numpy(), axis=1).astype(np.float32)
+    if not np.array_equal(got[0, :, 0].cpu().numpy(), np_row):
+        raise AssertionError(f"{name}: differs from np.median")
+    m = dict(
+        name=name, route="cuda", source="audio_analysis_torch/csrc/medians.cu",
+        replaces="audio_analysis_tpu/ops/pallas/medians.py:87 (_kernel_row_medians)",
+        max_abs_err=0.0, max_rel=0.0, ms=time_ms(lambda: md.row_medians(spec, nvf), 10),
+        plain_ms=time_ms(lambda: md.row_medians_plain(spec, nvf), 3), library_ms=None,
+        bound_ms=(spec.numel() + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        shape=list(spec.shape), nvf=[int(v) for v in nvf],
+    )
+    log(json.dumps(m))
+    return m
+
+
 def check_kernels(pcm):
     """Each kernel against its plain version on the card, at the main
     path's shapes; returns {name: measurement}."""
@@ -397,44 +435,49 @@ def check_kernels(pcm):
     nvf = torch.tensor([1 + mask_valid // hop], device=dev)
     valid = torch.arange(n_frames, device=dev) < nvf[:, None]
     spec_n = (spec / torch.where(valid[:, None, :], spec, 0.0).amax()).contiguous()
-    bytes_ms = spec_n.numel() * 4 / HBM_BYTES_PER_S * 1e3
-    for name, fn, plain, replaces, out_elems in (
-        ("row_medians", lambda: md.row_medians(spec_n, nvf),
-         lambda: md.row_medians_plain(spec_n, nvf),
-         "audio_analysis_tpu/ops/pallas/medians.py:87 (_kernel_row_medians)", 2049),
-        ("col_medians", lambda: md.col_medians(spec_n),
-         lambda: md.col_medians_plain(spec_n),
-         "audio_analysis_tpu/ops/pallas/medians.py:95 (_kernel_col_medians)", n_frames),
-    ):
-        got, ref = fn(), plain()
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            bad = int((got != ref).sum())
-            raise AssertionError(f"{name}: {bad} medians differ from the plain version")
-        res[name] = dict(
-            name=name, route="cuda", source="audio_analysis_torch/csrc/medians.cu",
-            replaces=replaces, max_abs_err=0.0, max_rel=0.0,
-            ms=time_ms(fn, 5), plain_ms=time_ms(plain, 5), library_ms=None,
-            bound_ms=bytes_ms + out_elems * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            shape=list(got.shape),
-        )
-        log(json.dumps(res[name]))
+    res["row_medians"] = row_medians_entry("row_medians", spec_n, nvf)
+    got, ref = md.col_medians(spec_n), md.col_medians_plain(spec_n)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"col_medians: {int((got != ref).sum())} medians differ from "
+                             "the plain version")
+    res["col_medians"] = dict(
+        name="col_medians", route="cuda", source="audio_analysis_torch/csrc/medians.cu",
+        replaces="audio_analysis_tpu/ops/pallas/medians.py:95 (_kernel_col_medians)",
+        max_abs_err=0.0, max_rel=0.0, ms=time_ms(lambda: md.col_medians(spec_n), 5),
+        plain_ms=time_ms(lambda: md.col_medians_plain(spec_n), 5), library_ms=None,
+        bound_ms=(spec_n.numel() + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        shape=list(got.shape),
+    )
+    log(json.dumps(res["col_medians"]))
     return res
 
 
-def bf16_entry(name, x, kw):
-    """stft_mel_bf16 against its plain version on the card on windows `x`
-    [N, S] with keyword arguments `kw`; returns its measurement. Rows of
-    `x` that are not finite are the padding of a window grid (all-zero
-    audio normalises to NaN, as in the reference; the per-track means drop
-    them) and are left out of the comparison."""
+BF16_REPLACES = {"dif": "audio_analysis_tpu/ops/pallas/melspec.py:391 (_kernel_dif)",
+                 "direct": "audio_analysis_tpu/ops/pallas/melspec.py:98 (_kernel)"}
+
+
+def bf16_entry(name, x, kw, compare=False):
+    """stft_mel_bf16 against the plain version of its route on the card on
+    windows `x` [N, S] with keyword arguments `kw`: max rel <= 1e-2 and,
+    two launches bit for bit; returns its measurement. Rows of `x` that are
+    not finite are the padding of a window grid (all-zero audio normalises
+    to NaN, as in the reference; the per-track means drop them) and are left
+    out of the comparison. Also reports, for information, the max rel
+    against the float64 ``stft_mel_plain``. With `compare`, times in the
+    same run the direct route at the same shape (AAT_PALLAS_ALG=matmul,
+    ``direct_ms``, and its max rel against float64, ``direct_max_rel_f64``)
+    and the float64 FFT ``stft_mel`` (``stft_mel_ms``)."""
     import torch
 
     from audio_analysis_torch.ops import melspec as ms
     from audio_analysis_torch.ops.mel import filterbank_np
 
+    route = ms.bf16_route(kw["n_fft"])
+    plain = ms.stft_mel_dif_bf16_plain if route == "dif" else ms.stft_mel_bf16_plain
     got = ms.stft_mel_bf16(x, **kw)
-    ref = ms.stft_mel_bf16_plain(x, **kw)
+    again = ms.stft_mel_bf16(x, **kw)
+    ref = plain(x, **kw)
     torch.cuda.synchronize()
     rows = torch.isfinite(x).all(dim=1)
     g, r = got[rows], ref[rows]
@@ -444,6 +487,11 @@ def bf16_entry(name, x, kw):
     rel = max_rel(g, r)
     if not rel <= 1e-2:
         raise AssertionError(f"{name}: max rel {rel:.3g} vs its plain version (limit 1e-2)")
+    if not torch.equal(got[rows], again[rows]):
+        raise AssertionError(f"{name}: two launches differ")
+    del again, ref
+    f64 = ms.stft_mel_plain(x, **kw)[rows]
+    rel_f64 = max_rel(g, f64)
     n, s = x.shape
     n_fft, n_mels, frames = kw["n_fft"], kw["n_mels"], got.shape[-1]
     nnz = int((filterbank_np(kw["sr"], n_mels, kw["fmin"], kw["fmax"], n_fft,
@@ -451,22 +499,31 @@ def bf16_entry(name, x, kw):
     byte_ms = (n * s + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3
     op_ms = n * frames * (fft_flops(n_fft) + 2 * nnz) / BF16_FLOPS * 1e3
     m = dict(
-        name=name, route="cuda", source="audio_analysis_torch/csrc/stft_bf16.cu",
-        replaces="audio_analysis_tpu/ops/pallas/melspec.py:98 (_kernel)",
+        name=name, route="cuda", dft_route=route,
+        source="audio_analysis_torch/csrc/stft_bf16.cu", replaces=BF16_REPLACES[route],
         max_abs_err=float((g.double() - r.double()).abs().max()), max_rel=rel,
-        ms=time_ms(lambda: ms.stft_mel_bf16(x, **kw), 10),
-        plain_ms=time_ms(lambda: ms.stft_mel_bf16_plain(x, **kw), 3), library_ms=None,
+        max_rel_f64=rel_f64, ms=time_ms(lambda: ms.stft_mel_bf16(x, **kw), 10),
+        plain_ms=time_ms(lambda: plain(x, **kw), 3), library_ms=None,
         bound_ms=max(byte_ms, op_ms), bound_by="bytes" if byte_ms >= op_ms else "operations",
         shape=list(got.shape), rows_compared=int(rows.sum()),
     )
+    if compare:
+        os.environ["AAT_PALLAS_ALG"] = "matmul"
+        try:
+            m["direct_max_rel_f64"] = max_rel(ms.stft_mel_bf16(x, **kw)[rows], f64)
+            m["direct_ms"] = time_ms(lambda: ms.stft_mel_bf16(x, **kw), 3)
+        finally:
+            os.environ.pop("AAT_PALLAS_ALG")
+        m["stft_mel_ms"] = time_ms(lambda: ms.stft_mel(x, **kw), 5)
     log(json.dumps(m))
     return m
 
 
 def check_bf16(pcm):
-    """stft_mel_bf16 against its plain version on the card, at the slice's
-    shapes and where the JAX package takes ``_kernel`` (more than 320
-    frames a window, n_fft % 8 != 0); returns {name: measurement}."""
+    """stft_mel_bf16 against the plain version of its route on the card, at
+    the slice's shapes (dif route), at more than 320 frames a window (the
+    JAX package's VMEM cap, dif route here) and at n_fft % 8 != 0 (direct
+    route); returns {name: measurement}."""
     import torch
 
     from audio_analysis_torch.ops.scale import normalize_minmax
@@ -492,8 +549,13 @@ def check_bf16(pcm):
                                              fmin=50.0, fmax=7000.0, break_freq=1750.0,
                                              power=2.0)),
     }
-    return {f"stft_mel_bf16[{tag}]": bf16_entry(f"stft_mel_bf16[{tag}]", x, kw)
-            for tag, (x, kw) in shapes.items()}
+    res = {f"stft_mel_bf16[{tag}]": bf16_entry(f"stft_mel_bf16[{tag}]", x, kw,
+                                               compare=tag in ("classify", "end-scan"))
+           for tag, (x, kw) in shapes.items()}
+    if res["stft_mel_bf16[nfft500]"]["dft_route"] != "direct" or any(
+            m["dft_route"] != "dif" for k, m in res.items() if "nfft500" not in k):
+        raise AssertionError("stft_mel_bf16 took another route than bf16_route's")
+    return res
 
 
 @contextlib.contextmanager
@@ -502,12 +564,15 @@ def capture_inputs(captured):
     the fast batch path passes to stft_mel_bf16 (``batch end-scan``: the
     call with a ``frames`` prefix; ``batch classify``: the window grid) and
     to stft_mag (``batch``: the batch's detection signals, zeroed past each
-    recording's data end) into `captured` {tag: (kernel name, input,
-    kwargs)}. The kernels still run, and count, once per call."""
+    recording's data end) and to row_medians (``batch``: the normalised
+    [8, 2049, T] spectrogram and its valid frames) into `captured` {tag:
+    (kernel name, input, kwargs)}. The kernels still run, and count, once
+    per call."""
     from audio_analysis_torch.detect import signal_noise
     from audio_analysis_torch.pipeline import frontend
 
     bf16, mag = frontend.stft_mel_bf16, signal_noise.stft_mag
+    rowcol = signal_noise.masked_medians_rowcol
 
     def recording_bf16(windows, **kw):
         tag = "batch end-scan" if kw.get("frames") is not None else "batch classify"
@@ -518,11 +583,17 @@ def capture_inputs(captured):
         captured.setdefault("batch", ("stft_mag", y.clone(), dict(kw)))
         return mag(y, **kw)
 
+    def recording_rowcol(spec, nvf):
+        captured.setdefault("batch medians", ("row_medians", spec.clone(), {"nvf": nvf.clone()}))
+        return rowcol(spec, nvf)
+
     frontend.stft_mel_bf16, signal_noise.stft_mag = recording_bf16, recording_mag
+    signal_noise.masked_medians_rowcol = recording_rowcol
     try:
         yield captured
     finally:
         frontend.stft_mel_bf16, signal_noise.stft_mag = bf16, mag
+        signal_noise.masked_medians_rowcol = rowcol
 
 
 def counters():
@@ -534,7 +605,7 @@ def counters():
             "stft_mel_bf16": ms.stft_mel_bf16}
 
 
-DIRECT = ("stft_mel", "stft_mag")  # wrappers with a direct route, counted apart
+DIRECT = ("stft_mel", "stft_mag", "stft_mel_bf16")  # wrappers with a direct route
 
 
 def reset_counts():
@@ -733,7 +804,8 @@ def main():
         for knob in ("AAT_FAST", "AAT_PALLAS"):
             os.environ.pop(knob, None)
         exact_path = {"stft_mel": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
-                      "stft_mel_bf16": 0, "stft_mel.direct": 0, "stft_mag.direct": 0}
+                      "stft_mel_bf16": 0, "stft_mel.direct": 0, "stft_mag.direct": 0,
+                      "stft_mel_bf16.direct": 0}
         runs = {}
         for tag in ("cold", "warm"):
             res, wall, launches = run_cli(wav, model_dir, "cuda")
@@ -780,7 +852,8 @@ def main():
             f"{len(backlog)} x {SECONDS} s WAVs, bird and pre TuiNets (bfloat16)")
         os.environ["AAT_FAST"] = "1"
         fast_path = {"stft_mel_bf16": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
-                     "stft_mel": 0, "stft_mel.direct": 0, "stft_mag.direct": 0}
+                     "stft_mel": 0, "stft_mel.direct": 0, "stft_mag.direct": 0,
+                     "stft_mel_bf16.direct": 0}
         batch_runs, captured = {}, {}
         for tag in ("cold", "warm"):
             timer = StageTimer()
@@ -799,14 +872,16 @@ def main():
             raise AssertionError(f"unexpected batch durations: {durations}")
         if not all(r["analysis"]["chirps"]["signals"] for r in batch_runs["cold"]):
             raise AssertionError("a batch recording has no signals")
-        if sorted(captured) != ["batch", "batch classify", "batch end-scan"]:
+        if sorted(captured) != ["batch", "batch classify", "batch end-scan", "batch medians"]:
             raise AssertionError(f"kernel inputs captured: {sorted(captured)}")
         for tag, (kernel, x, kw) in sorted(captured.items()):
             name = f"{kernel}[{tag}]"
             if kernel == "stft_mag":  # [8, 2.88M], each recording's own silent tail
                 kernels[name] = mag_entry(name, x, kw["n_fft"], kw["hop_length"], iters=3)
+            elif kernel == "row_medians":  # [8, 2049, T], each recording's valid frames
+                kernels[name] = row_medians_entry(name, x, kw["nvf"])
             else:
-                kernels[name] = bf16_entry(name, x, kw)
+                kernels[name] = bf16_entry(name, x, kw, compare=True)
         del captured
 
         # a backlog of three batches through the pipelined stream
@@ -852,6 +927,8 @@ def main():
             out[-1] |= {"dft_route": m["dft_route"], "library_ms_f64": m.get("library_ms_f64"),
                         "direct_launches": batch_launches[direct] if fast_path[base]
                         else launches[direct]}
+            out[-1] |= {k: m[k] for k in ("direct_ms", "stft_mel_ms", "max_rel_f64",
+                                          "direct_max_rel_f64") if k in m}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))
     log(f"card: {card_line()}")

@@ -1,8 +1,10 @@
 """The port's fast frontend level (AAT_FAST / AAT_PALLAS) against the JAX
-package: the bf16 DFT -> mel (``stft_mel_bf16``'s plain version) against
-the Pallas ``_kernel`` in interpret mode and a float64 oracle, the level
-resolver's precedence, the fast end-scan's decisions, and the fast classify
-against the JAX package's fast classify.
+package: the direct route's bf16 DFT -> mel (``stft_mel_bf16_plain``)
+against the Pallas ``_kernel`` in interpret mode and a float64 oracle, the
+level resolver's precedence, the fast end-scan's decisions, and the fast
+classify against the JAX package's fast classify on both routes (the dif
+route's plain version is held against ``_kernel_dif`` in
+tests/test_torch_dif_bf16.py).
 
 On a CPU tensor the wrapper takes its plain version; the kernel itself is
 held against that in tests/test_torch_kernels.py, on a GPU."""
@@ -64,13 +66,15 @@ def _f64_oracle(wins, sr, n_fft, hop, n_mels, fmin, fmax, htk, power):
 
 
 @pytest.mark.parametrize("case", list(BF16_CASES))
-def test_stft_mel_bf16_plain_vs_pallas_kernel_and_oracle(rng, case):
-    """Limits: 1e-2 max rel against the Pallas ``_kernel`` (the same bf16
+def test_stft_mel_bf16_plain_vs_pallas_kernel_and_oracle(rng, monkeypatch, case):
+    """The direct route (AAT_PALLAS_ALG=matmul, as the JAX side runs
+    ``_kernel`` here). Limits: 1e-2 max rel against the Pallas ``_kernel`` (the same bf16
     contract; one bf16 rounding flip of a power term moves a mel value by
     at most 2^-7 of itself, and the summation order adds ~1e-6), and the
     JAX test's bf16 budget against float64 (tests/test_pallas_melspec.py:
     rtol 3e-2, atol 5e-3 of the scale)."""
     sr, n_fft, hop, n_mels, fmin, fmax, s, htk, power = BF16_CASES[case]
+    monkeypatch.setenv("AAT_PALLAS_ALG", "matmul")
     wins = rng.randn(2, s).astype(np.float32)
     wr, wi, melm, _ = jm._device_weights(sr, n_fft, n_mels, fmin, fmax, 1750.0, htk, "hann")
     ref = np.asarray(jm._melspec_core(jnp.asarray(wins), wr, wi, melm, hop_length=hop,
@@ -83,9 +87,11 @@ def test_stft_mel_bf16_plain_vs_pallas_kernel_and_oracle(rng, case):
     np.testing.assert_allclose(got, oracle, rtol=3e-2, atol=5e-3 * np.abs(oracle).max())
 
 
-def test_stft_mel_bf16_frames_and_shapes(rng):
+@pytest.mark.parametrize("alg", ["", "matmul"])
+def test_stft_mel_bf16_frames_and_shapes(rng, monkeypatch, alg):
     """``frames`` takes a prefix of the frames; more mels than the kernel's
-    largest tile are refused on every device."""
+    largest tile are refused on every device; on both routes."""
+    monkeypatch.setenv("AAT_PALLAS_ALG", alg)
     wins = torch.from_numpy(rng.randn(2, 4000).astype(np.float32))
     kw = dict(sr=16000, n_fft=512, hop_length=160, n_mels=40, fmin=50.0, fmax=7000.0)
     full = ms.stft_mel_bf16(wins, **kw)
@@ -133,32 +139,37 @@ def test_level_resolver_warns_once_on_a_bad_value(monkeypatch, caplog, fast, lev
 
 
 def test_fast_level_on_cpu_runs_the_bf16_plain_version(monkeypatch, rng):
-    """At the fast level a CPU tensor takes the bf16 kernel's plain version
-    (the CPU mirrors the card), never the float64 ``stft_mel_plain``; no
-    kernel launch is counted."""
+    """At the fast level a CPU tensor takes the plain version of the bf16
+    kernel's route (the CPU mirrors the card: the dif route at n_fft 4096
+    and 4800), never the float64 ``stft_mel_plain``; no kernel launch is
+    counted."""
     from audio_analysis_torch.detect.signal_noise import _batch_chunk_flatness
 
     calls = []
-    plain = ms.stft_mel_bf16_plain
 
-    def spy(*a, **k):
-        calls.append(k["n_fft"])
-        return plain(*a, **k)
+    def spy(name, plain):
+        def run(*a, **k):
+            calls.append((name, k["n_fft"]))
+            return plain(*a, **k)
+        return run
 
     def refuse(*a, **k):
         raise AssertionError("the fast level reached the float64 plain version")
 
-    monkeypatch.setattr(ms, "stft_mel_bf16_plain", spy)
+    monkeypatch.setattr(ms, "stft_mel_bf16_plain", spy("direct", ms.stft_mel_bf16_plain))
+    monkeypatch.setattr(ms, "stft_mel_dif_bf16_plain",
+                        spy("dif", ms.stft_mel_dif_bf16_plain))
     monkeypatch.setattr(ms, "stft_mel_plain", refuse)
     monkeypatch.setenv("AAT_FAST", "1")
     monkeypatch.delenv("AAT_PALLAS", raising=False)
+    monkeypatch.delenv("AAT_PALLAS_ALG", raising=False)
     launches = (ms.stft_mel.launches, ms.stft_mel_bf16.launches)
     g = torch.from_numpy(rng.randn(2, 48000).astype(np.float32))
     feats = fe.spectrogram_grid(g, sr=48000, hop_length=640, n_fft=4096, n_mels=64,
                                 mel_break=1750.0)
     assert feats.shape == (2, 64, 76, 1)
     _batch_chunk_flatness(g, sr=48000, hop_length=281)
-    assert calls == [4096, 4800]
+    assert calls == [("dif", 4096), ("dif", 4800)]
     assert (ms.stft_mel.launches, ms.stft_mel_bf16.launches) == launches
 
 
@@ -247,6 +258,52 @@ def test_fast_classify_matches_jax_fast_classify(tmp_path, monkeypatch):
     got = _result(*classify_frames(y, SR, [str(model)], False, None,
                                    rng=np.random.RandomState(0), device="cpu"))
     assert ms.stft_mel_bf16.launches == launches  # the CPU runs the plain version
+    assert ref["species_identify"], "the fixture must produce tracks"
+    for k in ("length", "signals", "max_chirps"):
+        assert got[k] == ref[k]
+    chip_smoke.compare_results(got, ref)
+
+
+def test_fast_classify_matches_jax_default_fast_classify(tmp_path, monkeypatch):
+    """The JAX package's default fast classify (no AAT_PALLAS_ALG: the
+    frontend and the end-scan take ``_kernel_dif`` at exact=0, in interpret
+    mode on the CPU backend) against the port's fast classify on the CPU,
+    which takes the dif route's plain version: signals, length and labels
+    identical, confidences within 1 (a float32 TuiNet)."""
+    import audio_analysis_tpu.pipeline.frontend as jfe
+    from audio_analysis_tpu.ops.pallas import medians as jmd
+    from audio_analysis_tpu.pipeline.classify import classify_frames as j_classify
+    from audio_analysis_torch.pipeline.classify import classify_frames
+
+    model = chip_smoke.write_tuinet_model(tmp_path / "m", seed=2, channels=(8, 16), stem=8,
+                                          dense=16, n_mels=40)
+    y = chip_smoke.make_recording(seconds=12, silent_from=10.0, seed=3)
+    monkeypatch.setattr(jfe, "_pallas_backend", lambda: True)
+    monkeypatch.setenv("AAT_FAST", "1")
+    monkeypatch.delenv("AAT_PALLAS", raising=False)
+    monkeypatch.delenv("AAT_PALLAS_ALG", raising=False)
+    monkeypatch.setattr(jm, "pallas_mel_spectrogram",
+                        partial(jm.pallas_mel_spectrogram, interpret=True))
+    monkeypatch.setattr(jm, "pallas_stft_magnitude",
+                        partial(jm.pallas_stft_magnitude, interpret=True))
+    monkeypatch.setattr(jmd, "pallas_masked_medians_rowcol",
+                        partial(jmd.pallas_masked_medians_rowcol, interpret=True))
+    calls = []
+    core, dif = jm._melspec_core, jm._melspec_core_dif
+    monkeypatch.setattr(jm, "_melspec_core", lambda *a, **k: calls.append("direct") or core(*a, **k))
+    monkeypatch.setattr(jm, "_melspec_core_dif",
+                        lambda *a, **k: calls.append(("dif", k.get("exact"))) or dif(*a, **k))
+
+    ref = _result(*j_classify(y, SR, [str(model)], False, None, rng=np.random.RandomState(0)))
+    assert calls and set(calls) == {("dif", 0)}, calls
+    plain = []
+    monkeypatch.setattr(ms, "stft_mel_bf16_plain", lambda *a, **k: plain.append("direct"))
+    dif_plain = ms.stft_mel_dif_bf16_plain
+    monkeypatch.setattr(ms, "stft_mel_dif_bf16_plain",
+                        lambda *a, **k: plain.append("dif") or dif_plain(*a, **k))
+    got = _result(*classify_frames(y, SR, [str(model)], False, None,
+                                   rng=np.random.RandomState(0), device="cpu"))
+    assert plain and set(plain) == {"dif"}
     assert ref["species_identify"], "the fixture must produce tracks"
     for k in ("length", "signals", "max_chirps"):
         assert got[k] == ref[k]

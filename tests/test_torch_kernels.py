@@ -144,35 +144,90 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 
 
 # (sr, n_fft, hop, n_mels, samples, frames): the classify frontend, the
-# end-scan's frame prefix, a 4.5 s window of 338 frames, n_fft % 8 != 0
+# end-scan's frame prefix, a 4.5 s window of 338 frames, n_fft 2056 over the
+# whole band (129 bins a leaf: two bin tiles, leaves padded 257 -> 272), all
+# on the dif route, and n_fft % 8 != 0 (direct route)
 BF16_GEOMS = {
     "classify": (48000, 4096, 640, 160, 144000, None),
     "endscan": (48000, 4800, 281, 120, 96000, 340),
     "long": (48000, 4096, 640, 160, 216000, None),
+    "nfft2056": (16000, 2056, 512, 40, 16000, None),
     "nfft500": (16000, 500, 125, 40, 16000, None),
 }
+
+
+def _bf16_plain(wins, **kw):
+    """The plain version of the route the wrapper takes for kw's n_fft."""
+    dif = ms.bf16_route(kw["n_fft"]) == "dif"
+    return (ms.stft_mel_dif_bf16_plain if dif else ms.stft_mel_bf16_plain)(wins, **kw)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("geom", list(BF16_GEOMS))
 @pytest.mark.parametrize("power", [1.0, 2.0])
 def test_stft_mel_bf16_kernel_matches_plain(cuda_device, rng, geom, power):
-    """Limit 1e-2 max rel: one bf16 rounding flip of a power term moves a
-    mel value by at most 2^-7 of itself; the order of the float32 sums adds
-    ~1e-6. No atomics, so two launches agree bit for bit."""
+    """Limit 1e-2 max rel against the plain version of the same route: one
+    bf16 rounding flip of a power term moves a mel value by at most 2^-7 of
+    itself; the order of the float32 sums adds ~1e-6. No atomics, so two
+    launches agree bit for bit."""
     sr, n_fft, hop, n_mels, s, frames = BF16_GEOMS[geom]
     wins = torch.from_numpy(rng.randn(3, s).astype(np.float32)).to(cuda_device)
     kw = dict(sr=sr, n_fft=n_fft, hop_length=hop, n_mels=n_mels, fmin=50.0,
               fmax=min(11000.0, sr / 2), power=power, frames=frames)
-    before = ms.stft_mel_bf16.launches
+    direct = ms.bf16_route(n_fft) == "direct"
+    assert direct == (geom == "nfft500")
+    before = (ms.stft_mel_bf16.launches, ms.stft_mel_bf16.direct_launches)
     got = ms.stft_mel_bf16(wins, **kw)
-    assert ms.stft_mel_bf16.launches == before + 1
-    ref = ms.stft_mel_bf16_plain(wins, **kw)
+    assert (ms.stft_mel_bf16.launches, ms.stft_mel_bf16.direct_launches) == (
+        before[0] + 1, before[1] + direct)
+    ref = _bf16_plain(wins, **kw)
     assert got.shape == ref.shape == (3, n_mels, frames or 1 + s // hop)
     assert _max_rel(got, ref) <= 1e-2
     assert torch.equal(got, ms.stft_mel_bf16(wins, **kw))
     slaney = ms.stft_mel_bf16(wins, htk=False, **kw)
-    assert _max_rel(slaney, ms.stft_mel_bf16_plain(wins, htk=False, **kw)) <= 1e-2
+    assert _max_rel(slaney, _bf16_plain(wins, htk=False, **kw)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples,tails", [
+    (96001, (96001, 50000, 20001, 0)),  # 342 frames at hop 281: 21 tiles of 16, then 6
+    (48281, (48281, 40000, 30000, 1)),  # 172 frames
+])
+def test_stft_mel_dif_bf16_silent_frames_and_odd_counts(cuda_device, rng, samples, tails):
+    """The end-scan's geometry (n_fft 4800, 120 mels, power 1) on windows
+    silent from their own points: frames past each tail come out as exact
+    zeros, the rest within 1e-2 of the plain version, two launches bit for
+    bit."""
+    x = (0.1 * rng.randn(len(tails), samples)).astype(np.float32)
+    for row, at in zip(x, tails):
+        row[at:] = 0.0
+    x = torch.from_numpy(x).to(cuda_device)
+    kw = dict(sr=48000, n_fft=4800, hop_length=281, n_mels=120, fmin=50.0, fmax=11000.0,
+              power=1.0)
+    got = ms.stft_mel_bf16(x, **kw)
+    ref = ms.stft_mel_dif_bf16_plain(x, **kw)
+    assert got.shape == ref.shape == (len(tails), 120, 1 + samples // 281)
+    assert _max_rel(got, ref) <= 1e-2
+    assert torch.equal(got, ms.stft_mel_bf16(x, **kw))
+    for b, at in enumerate(tails):
+        silent = 1 + (at + 2400) // 281  # first frame wholly past the tail
+        assert not bool(got[b, :, silent:].any())
+
+
+@pytest.mark.cuda
+def test_stft_mel_bf16_matmul_forces_the_direct_route(cuda_device, rng, monkeypatch):
+    """AAT_PALLAS_ALG=matmul sends the classify shape to the direct kernel,
+    read at each call, as the JAX package's ``_use_dif``."""
+    wins = torch.from_numpy(rng.randn(2, 48000).astype(np.float32)).to(cuda_device)
+    kw = dict(sr=48000, n_fft=4096, hop_length=640, n_mels=160, fmin=50.0, fmax=11000.0)
+    monkeypatch.setenv("AAT_PALLAS_ALG", "matmul")
+    before = ms.stft_mel_bf16.direct_launches
+    got = ms.stft_mel_bf16(wins, **kw)
+    assert ms.stft_mel_bf16.direct_launches == before + 1
+    assert _max_rel(got, ms.stft_mel_bf16_plain(wins, **kw)) <= 1e-2
+    monkeypatch.delenv("AAT_PALLAS_ALG")
+    ms.stft_mel_bf16(wins, **kw)
+    assert ms.stft_mel_bf16.direct_launches == before + 1
 
 
 @pytest.mark.cuda
@@ -188,6 +243,8 @@ def test_bf16_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
 
 
 def _spec(rng, kind, bins, t):
+    if kind == "equal":
+        return np.full((bins, t), 0.375, np.float32)
     if kind == "ties":
         return (rng.randint(0, 4, size=(bins, t)) * 0.25).astype(np.float32)
     if kind == "zeros":
@@ -201,7 +258,9 @@ def _spec(rng, kind, bins, t):
 @pytest.mark.parametrize("kind,bins,t,nvf", [
     ("random", 37, 50, 50), ("random", 38, 51, 33), ("ties", 41, 64, 64),
     ("ties", 40, 60, 21), ("zeros", 33, 45, 44), ("zeros", 34, 45, 1),
-    ("random", 2049, 2000, 1500),
+    ("random", 2049, 2000, 1500), ("equal", 16, 40, 40), ("equal", 16, 41, 7),
+    ("ties", 24, 30, 2), ("zeros", 9, 12, 3), ("ties", 2049, 10250, 8883),
+    ("random", 2049, 10250, 8884),
 ])
 def test_median_kernels_equal_plain(cuda_device, rng, kind, bins, t, nvf):
     spec = torch.from_numpy(_spec(rng, kind, bins, t))[None].to(cuda_device)
