@@ -3,13 +3,15 @@
 ``row_medians`` replaces the Pallas kernel
 ``ops/pallas/medians.py::_kernel_row_medians`` and ``col_medians`` replaces
 ``_kernel_col_medians`` (CUDA source: ``csrc/medians.cu``): the kernels find
-the lower middle value on int32 bit patterns exactly (the rows by a radix
-select over four 8-bit digits, the columns by the 31-step binary rank
-search) and the upper middle value by a successor pass, so they are
-bit-identical to ``np.median``. Each wrapper
-launches its kernel for a CUDA tensor and uses the plain PyTorch version
-(a sort) for a CPU tensor, and counts its launches in ``.launches``.
-``torch.median`` is not a substitute: it returns the lower middle value.
+the lower middle value on int32 bit patterns exactly, by a radix select over
+four 8-bit digits (a block per row; a warp per column, the column held in
+registers while the next tile of columns is copied in), and the upper
+middle value by a successor pass, so they are bit-identical to
+``np.median``. ``col_medians`` computes every column, those past a
+recording's valid frames too. Each wrapper launches its kernel for a CUDA
+tensor and uses the plain PyTorch version (a sort) for a CPU tensor, and
+counts its launches in ``.launches``. ``torch.median`` is not a substitute:
+it returns the lower middle value.
 """
 
 import torch

@@ -20,7 +20,8 @@
    stft_mag) must agree to max rel 1e-6 and bit for bit across two
    launches; stft_mag is timed beside torch.stft in float32 and in float64,
    and once more at n_fft 4400 (2^4 5^2 11), which takes the direct route;
-   row_medians bit for bit against its plain version and np.median;
+   row_medians and col_medians bit for bit against their plain versions and
+   np.median;
    stft_mel_bf16 against the plain version of its route (``dif`` for
    n_fft % 8 == 0, ``direct`` for n_fft 500) to max rel 1e-2 and bit for bit
    across two launches, with its max rel against the float64 plain version
@@ -42,11 +43,12 @@
    the first eight WAVs) cold and then warm with the counts reset around each
    run, requires stft_mel_bf16 twice per batch, stft_mel and every direct
    route never, prints the wall time, audio seconds per second and stage
-   times, and holds stft_mel_bf16, stft_mag and row_medians against their
-   plain versions on the inputs the cold batch gave them (the [8, T]
-   end-scan and the batch's padded classify grid, each also timed beside
-   the direct route and stft_mel; the [8, T] detection signals, each zeroed
-   past its own data end; the [8, 2049, T] normalised spectrogram);
+   times, and holds stft_mel_bf16, stft_mag, row_medians and col_medians
+   against their plain versions on the inputs the cold batch gave them (the
+   [8, T] end-scan and the batch's padded classify grid, each also timed
+   beside the direct route and stft_mel; the [8, T] detection signals, each
+   zeroed past its own data end; the [8, 2049, T] normalised spectrogram,
+   for both medians);
    then runs a backlog of 24 WAVs (three batches through the pipelined
    stream) and prints its audio seconds per second over the whole run,
    profiles one more warm batch, and runs the first four WAVs with
@@ -361,6 +363,36 @@ def row_medians_entry(name, spec, nvf):
     return m
 
 
+def col_medians_entry(name, spec):
+    """col_medians on `spec` [B, bins, T] over all rows, bit for bit against
+    its plain version (every column, the all-zero tail past the valid frames
+    included) and, for the first recording, np.median, with its time and
+    bound (the spectrogram read once, the medians written once); returns
+    the measurement."""
+    import torch
+
+    from audio_analysis_torch.ops import medians as md
+
+    got, ref = md.col_medians(spec), md.col_medians_plain(spec)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{name}: {int((got != ref).sum())} medians differ from the "
+                             "plain version")
+    np_col = np.median(spec[0].cpu().numpy(), axis=0).astype(np.float32)
+    if not np.array_equal(got[0, 0].cpu().numpy(), np_col):
+        raise AssertionError(f"{name}: differs from np.median")
+    m = dict(
+        name=name, route="cuda", source="audio_analysis_torch/csrc/medians.cu",
+        replaces="audio_analysis_tpu/ops/pallas/medians.py:95 (_kernel_col_medians)",
+        max_abs_err=0.0, max_rel=0.0, ms=time_ms(lambda: md.col_medians(spec), 10),
+        plain_ms=time_ms(lambda: md.col_medians_plain(spec), 3), library_ms=None,
+        bound_ms=(spec.numel() + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        shape=list(spec.shape),
+    )
+    log(json.dumps(m))
+    return m
+
+
 def check_kernels(pcm):
     """Each kernel against its plain version on the card, at the main
     path's shapes; returns {name: measurement}."""
@@ -436,20 +468,7 @@ def check_kernels(pcm):
     valid = torch.arange(n_frames, device=dev) < nvf[:, None]
     spec_n = (spec / torch.where(valid[:, None, :], spec, 0.0).amax()).contiguous()
     res["row_medians"] = row_medians_entry("row_medians", spec_n, nvf)
-    got, ref = md.col_medians(spec_n), md.col_medians_plain(spec_n)
-    torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        raise AssertionError(f"col_medians: {int((got != ref).sum())} medians differ from "
-                             "the plain version")
-    res["col_medians"] = dict(
-        name="col_medians", route="cuda", source="audio_analysis_torch/csrc/medians.cu",
-        replaces="audio_analysis_tpu/ops/pallas/medians.py:95 (_kernel_col_medians)",
-        max_abs_err=0.0, max_rel=0.0, ms=time_ms(lambda: md.col_medians(spec_n), 5),
-        plain_ms=time_ms(lambda: md.col_medians_plain(spec_n), 5), library_ms=None,
-        bound_ms=(spec_n.numel() + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        shape=list(got.shape),
-    )
-    log(json.dumps(res["col_medians"]))
+    res["col_medians"] = col_medians_entry("col_medians", spec_n)
     return res
 
 
@@ -564,8 +583,8 @@ def capture_inputs(captured):
     the fast batch path passes to stft_mel_bf16 (``batch end-scan``: the
     call with a ``frames`` prefix; ``batch classify``: the window grid) and
     to stft_mag (``batch``: the batch's detection signals, zeroed past each
-    recording's data end) and to row_medians (``batch``: the normalised
-    [8, 2049, T] spectrogram and its valid frames) into `captured` {tag:
+    recording's data end) and to the medians (``batch medians``: the
+    normalised [8, 2049, T] spectrogram and its valid frames) into `captured` {tag:
     (kernel name, input, kwargs)}. The kernels still run, and count, once
     per call."""
     from audio_analysis_torch.detect import signal_noise
@@ -880,6 +899,8 @@ def main():
                 kernels[name] = mag_entry(name, x, kw["n_fft"], kw["hop_length"], iters=3)
             elif kernel == "row_medians":  # [8, 2049, T], each recording's valid frames
                 kernels[name] = row_medians_entry(name, x, kw["nvf"])
+                col = f"col_medians[{tag}]"  # the same input, over all rows
+                kernels[col] = col_medians_entry(col, x)
             else:
                 kernels[name] = bf16_entry(name, x, kw, compare=True)
         del captured

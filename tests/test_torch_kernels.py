@@ -283,6 +283,58 @@ def test_median_kernels_batch(cuda_device, rng):
     assert torch.equal(md.col_medians(spec), md.col_medians_plain(spec))
 
 
+def _scaled(rng, bins, t):
+    """A spectrogram-like [bins, t] block scaled into [0, 1], as detection
+    normalises by a_max."""
+    x = (np.abs(rng.randn(bins, t)) ** 3).astype(np.float32)
+    return x / x.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bins,t,tail", [
+    (2049, 10250, 1367),  # 60 s at hop 281, silent from 52 s: the last 1,367 columns zero
+    (2049, 1003, 0),      # T not a multiple of the 8-column tile
+    (2049, 5, 0),         # T smaller than one tile
+    (2048, 21, 6),        # an even row count: the successor pass
+    (2080, 37, 9),        # the tallest column held in registers
+    (2081, 19, 3),        # the shortest column read from device memory
+    (1, 9, 0), (2, 17, 4), (64, 3, 1),
+])
+def test_col_medians_tiles_and_silent_tails(cuda_device, rng, bins, t, tail):
+    """Bit for bit against the plain version and np.median over every
+    column, the all-zero tail included."""
+    x = _scaled(rng, bins, t)
+    x[:, t - tail:] = 0.0
+    spec = torch.from_numpy(x)[None].to(cuda_device)
+    before = md.col_medians.launches
+    got = md.col_medians(spec)
+    assert md.col_medians.launches == before + 1
+    assert got.shape == (1, 1, t)
+    assert torch.equal(got, md.col_medians_plain(spec))
+    want = np.median(x, axis=0).astype(np.float32)
+    np.testing.assert_array_equal(got[0, 0].cpu().numpy().view(np.int32), want.view(np.int32))
+    assert not bool(got[0, 0, t - tail:].any())
+
+
+@pytest.mark.cuda
+def test_col_medians_batch_of_silent_tails(cuda_device, rng):
+    """Eight recordings in one launch, each with its own all-zero tail (one
+    without, one all zero), as the fast batch gives them: bit for bit
+    against the plain version."""
+    tails = [0, 1367, 2000, 5, 1999, 800, 8, 123]
+    x = np.stack([_scaled(rng, 2049, 2000) for _ in tails])
+    for rec, tail in zip(x, tails):
+        rec[:, 2000 - tail:] = 0.0
+    spec = torch.from_numpy(x).to(cuda_device)
+    got = md.col_medians(spec)
+    assert got.shape == (8, 1, 2000)
+    assert torch.equal(got, md.col_medians_plain(spec))
+    for b, tail in enumerate(tails):
+        assert not bool(got[b, 0, 2000 - tail:].any())
+        if tail < 2000:
+            assert bool(got[b, 0, : 2000 - tail].all())
+
+
 @pytest.mark.cuda
 def test_median_kernels_read_device_memory_beyond_shared_memory(cuda_device, rng):
     """Lines longer than shared memory holds are searched in place: still
