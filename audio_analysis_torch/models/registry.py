@@ -4,7 +4,9 @@ package's models/registry.py).
 - a native checkpoint dir (metadata.txt with ``"architecture": "tuinet"``,
   or any dir with weights.npz): TuiNet;
 - ``"architecture": "dense"``: a dense stack over flat vectors;
-- a ``.keras`` archive: not ported yet (ROADMAP Queue 1, item 6).
+- a ``.keras`` archive (or a dir containing one): imported without
+  TensorFlow or h5py into the ``KerasModel`` executor, in the compute dtype
+  ``_resolved_compute_dtype`` picks.
 
 Every returned model is an ``nn.Module`` in eval mode on the requested
 device, mapping a [n_windows, ...] feature grid to probabilities.
@@ -18,6 +20,8 @@ from torch import nn
 from audio_analysis_torch.io.checkpoint import load_checkpoint_params
 from audio_analysis_torch.io.modelconfig import ModelConfig
 from audio_analysis_torch.models.birdnet import TuiNet, TuiNetConfig
+from audio_analysis_torch.models.keras_graph import KerasModel
+from audio_analysis_torch.utils.runtime import env_flag, fast_mode
 
 _MODEL_CACHE = {}
 
@@ -60,15 +64,31 @@ class DenseStack(nn.Module):
         return x
 
 
+def _resolved_compute_dtype(cfg: ModelConfig):
+    """The compute dtype a Keras load would actually use: metadata
+    net_dtype wins; otherwise AAT_KERAS_BF16 (explicit) or the AAT_FAST
+    preset picks bf16. Cache-keying on the RESOLVED value (not the raw env)
+    means a pinned net_dtype model — or A/B flips that resolve to the same
+    dtype — shares one device-resident instance."""
+    cdt = (cfg.raw or {}).get("net_dtype")
+    if cdt is not None:
+        return str(cdt)
+    bf16 = env_flag("AAT_KERAS_BF16")
+    if bf16 is None:
+        bf16 = fast_mode()
+    return "bfloat16" if bf16 else None
+
+
 def load_classifier(model_path, cfg: ModelConfig, device):
-    """Load (and cache per path + mtime + device) a classifier."""
+    """Load (and cache per path + mtime + device + compute dtype) a
+    classifier."""
     model_path = Path(model_path)
     try:
         stamp = (max(p.stat().st_mtime for p in model_path.rglob("*"))
                  if model_path.is_dir() else model_path.stat().st_mtime)
     except (OSError, ValueError):
         stamp = 0
-    key = (str(model_path.resolve()), stamp, str(device))
+    key = (str(model_path.resolve()), stamp, str(device), _resolved_compute_dtype(cfg))
     model = _MODEL_CACHE.get(key)
     if model is None:
         model = _load_uncached(model_path, cfg).to(device).eval().requires_grad_(False)
@@ -94,7 +114,6 @@ def _load_uncached(model_path: Path, cfg: ModelConfig) -> nn.Module:
         )
         net = TuiNet.from_jax_params(load_checkpoint_params(model_path), net_cfg)
         return _WithActivation(net, activation)
-    raise NotImplementedError(
-        f"{model_path}: Keras archives need the Keras graph executor, which is "
-        "not ported yet (ROADMAP Queue 1, item 6)"
-    )
+    # a Keras archive (file or dir containing one); its output layer gives
+    # the probabilities
+    return KerasModel.load(model_path, compute_dtype=_resolved_compute_dtype(cfg))

@@ -14,7 +14,7 @@ from audio_analysis_torch.pipeline.cacophony import (
     get_max_chirps,
 )
 from audio_analysis_torch.pipeline.ebird import filter_by_location
-from audio_analysis_torch.utils.runtime import StageTimer, env_flag
+from audio_analysis_torch.utils.runtime import StageTimer, timings_on
 
 SPECIES_IDENTIFY_VERSION = "2025-12-01"
 
@@ -66,7 +66,7 @@ def species_identify(file_name, bird_models, analyse_tracks, rng=None, device=No
     result["non_bird_tags"] = NON_BIRD
     result["species_identify"] = labels
     result["species_identify_version"] = SPECIES_IDENTIFY_VERSION
-    if env_flag("AAT_TIMINGS"):
+    if timings_on():
         # framework extension: per-stage wall clock (decode/detect/infer/post)
         result["timing"] = timer.as_dict()
     return result

@@ -50,7 +50,7 @@ from audio_analysis_torch.pipeline.classify import apply_thresholds, plan_for_co
 from audio_analysis_torch.pipeline.ebird import filter_by_location
 from audio_analysis_torch.pipeline.frontend import frontend_level
 from audio_analysis_torch.pipeline.samples import WindowPlan, pad_plan_to_bucket
-from audio_analysis_torch.utils.runtime import StageTimer, env_flag
+from audio_analysis_torch.utils.runtime import StageTimer, timings_on
 
 
 class BatchAnalyzer:
@@ -130,7 +130,7 @@ class BatchAnalyzer:
         with timer.stage("dispatch"):
             handle = self._dispatch(recordings, sr, meta_data, analyse_tracks)
         results = self._finish(handle, timer=timer)
-        if env_flag("AAT_TIMINGS"):
+        if timings_on():
             for r in results:
                 r["timing"] = timer.as_dict()
         return results

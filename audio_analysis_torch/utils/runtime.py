@@ -15,6 +15,13 @@ def env_flag(name):
     return v.lower() in ("1", "true", "on", "yes")
 
 
+def timings_on() -> bool:
+    """AAT_TIMINGS: per-stage wall clock in the results. Only 1/true/on turn
+    it on (not env_flag's "yes"), as in the JAX package's analysis and
+    serving."""
+    return os.environ.get("AAT_TIMINGS", "").lower() in ("1", "true", "on")
+
+
 def fast_mode() -> bool:
     """AAT_FAST=1 — the throughput preset: the bf16 tensor-core frontend
     (``pipeline/frontend.py::frontend_level``). Individual knobs

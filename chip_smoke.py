@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, and the torch/CUDA versions;
+1. prints whether h5py and tensorflow can be imported (the port needs
+   neither), the card's name and power limit, and the torch/CUDA versions;
 2. builds the CUDA kernels from audio_analysis_torch/csrc (one nvcc per
    source, all started together; sm_90a);
 3. writes fixtures into a temporary directory: a seeded 60 s, 48 kHz,
@@ -55,18 +56,33 @@
    ``--device cpu`` and requires the card's results to equal them
    (confidences within 2: the bf16 TuiNet's convolutions round at other
    places on cuDNN and the CPU);
-7. prints one JSON line describing every kernel, then the last line
-   ``{"ok": true, "device": {...}}``.
+7. EfficientNetB0 (``efficientnet_fixture``: the committed zero-weight
+   archive with seeded weights, read by the port's HDF5 reader): alone on a
+   [64, 160, 226, 3] grid of the recording's features, float32 on the card
+   against the CPU (max abs <= 1e-4) and bfloat16 against float32 on the
+   card (max abs <= 0.15, mean <= 0.02, no clear argmax changed), ms per
+   forward at both dtypes with windows/s, and the host's time to enqueue a
+   forward against its wall and device busy time (torch.profiler); then the
+   exact analyse CLI with it as the bird model (cold, warm, CPU; the card's
+   result equals the CPU's, confidences within 1, labels present), and the
+   ``AAT_FAST=1`` batch CLI on the eight WAVs with it (bfloat16 by the
+   preset; cold, warm, profiled, the first two on the CPU, confidences
+   within 2); every kernel count is reset around each run and checked as on
+   the TuiNet paths;
+8. prints one JSON line of the EfficientNetB0 numbers, one describing every
+   kernel, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
 line; without a CUDA device it exits non-zero at once.
 """
 
 import contextlib
+import importlib.util
 import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -88,6 +104,19 @@ REPO = Path(__file__).resolve().parent
 GOLDEN_MODEL = REPO / "tests" / "data" / "golden_model"
 GOLDEN_SNAPSHOT = REPO / "tests" / "data" / "golden_snapshot.json"
 LABELS = ["bird", "morepork", "kiwi", "whistler", "tui", "human", "noise", "insect"]
+EFFNET_ZERO = REPO / "audio_analysis_torch" / "data" / "efficientnet_b0_160x226_zero.keras"
+EFFNET_LABELS = ["bird", "kiwi", "morepork", "whistler", "noise", "human", "insect", "other"]
+# thresholds in gaps of the fixture's track confidences on the CPU: 18 | 27
+# at the exact level (float32), 29 | 33 in the fast batch's first two
+# recordings (bfloat16), so that a small card-vs-CPU difference flips no label
+EFFNET_THRESHOLD = 0.225
+EFFNET_FAST_THRESHOLD = 0.31
+EFFNET_WINDOWS = 64  # the model phase's grid: [64, 160, 226, 3]
+EFFNET_F32_TOL = 1e-4  # card float32 vs CPU float32, max abs of the probabilities
+# bfloat16 vs float32 on the card: through 16 blocks bfloat16 moves this
+# network's probabilities by up to 0.112 (mean 0.0063) in the JAX package's
+# own bfloat16 mode (CPU, 30 windows; tests/test_torch_keras_graph.py)
+EFFNET_BF16_MAX, EFFNET_BF16_MEAN = 0.15, 0.02
 
 
 def log(msg):
@@ -171,6 +200,137 @@ def write_tuinet_model(model_dir, seed=0, channels=(64, 128, 256), stem=32, dens
     w["head/b2"] = f32(0.01 * rng.randn(len(labels)))
     np.savez(model_dir / "weights.npz", **w)
     return model_dir
+
+
+def efficientnet_fixture(model_dir, seed=0, threshold=EFFNET_THRESHOLD, name="efficientnet-b0",
+                         labels=EFFNET_LABELS, **meta_overrides):
+    """A full-width EfficientNetB0 model dir over [160, 226, 3] mel windows
+    (bench.py's fixture) without TensorFlow: the committed archive's weights
+    (all zero) are overwritten in place, at each dataset's offset in the
+    HDF5 bytes that io/h5read.py reports, with weights drawn from a numpy
+    seed: conv and dense kernels He-normal over their fan-in, biases 0,
+    BatchNorm gamma ~1 and beta ~0 (perturbed), Normalization mean 0 and
+    variance 1 (it divides with no epsilon). BatchNorm's moving mean and
+    variance are then set to the statistics its input has on 15 windows of
+    a seeded recording (``bn_batch_stats``), as training would leave them:
+    with mean 0 and variance 1 instead, the input's part of the signal
+    decays through the 16 blocks and every window gets the same
+    probabilities. Writes audioModel.keras and metadata.txt (bench.py's
+    frontend; the name holds "efficientnet", so the 3-channel repeat
+    applies)."""
+    import zipfile
+
+    from audio_analysis_torch.io.h5read import read_h5
+    from audio_analysis_torch.io.keras_import import read_keras_archive
+
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    archive = model_dir / "audioModel.keras"
+    with zipfile.ZipFile(EFFNET_ZERO) as z:
+        files = {n: z.read(n) for n in z.namelist()}
+    h5 = bytearray(files["model.weights.h5"])
+    rng = np.random.RandomState(seed)
+    moving = {}  # BatchNorm weight key -> offsets of its moving mean and variance
+
+    def put(item, new):
+        raw = np.ascontiguousarray(new, dtype=item.array.dtype).tobytes()
+        h5[item.offset : item.offset + len(raw)] = raw
+
+    def fill(tree, path):
+        for key in sorted(tree):
+            item = tree[key]
+            if isinstance(item, dict):
+                fill(item, path + (key,))
+                continue
+            if item.offset is None or path[-1:] != ("vars",):
+                continue
+            layer, i, shape = path[-2].rstrip("0123456789").rstrip("_"), int(key), item.array.shape
+            if layer == "normalization":  # mean, variance, count
+                put(item, np.full(shape, (0, 1, 0)[i]))
+            elif layer == "batch_normalization":  # gamma, beta, moving mean, variance
+                if i < 2:
+                    put(item, (1.0, 0.0)[i] + 0.1 * rng.randn(*shape))
+                else:
+                    moving.setdefault("/".join(path[1:-1]), [None, None])[i - 2] = item
+            elif len(shape) >= 2:  # conv (HWIO), depthwise (h, w, C, 1), dense ([in, out])
+                fan_in = int(np.prod(shape[:-2])) * (1 if "depthwise" in layer else shape[-2])
+                put(item, rng.randn(*shape) * np.sqrt(2.0 / fan_in))
+            else:  # biases
+                put(item, np.zeros(shape))
+
+    def write():
+        files["model.weights.h5"] = bytes(h5)
+        with zipfile.ZipFile(archive, "w", zipfile.ZIP_DEFLATED) as z:
+            for n, data in files.items():
+                z.writestr(n, data)
+
+    fill(read_h5(bytes(h5)), ())
+    write()
+    config, weights, _ = read_keras_archive(archive)
+    for key, (mean, var) in bn_batch_stats(config, weights, calibration_grid(seed)).items():
+        put(moving[key][0], mean)
+        put(moving[key][1], var)
+    write()
+    meta = {
+        "name": name, "labels": list(labels), "segment_length": 3, "segment_stride": 1.5,
+        "hop_length": 640, "n_mels": 160, "break_freq": 1750, "htk": True, "fmin": 50,
+        "fmax": 11000, "power": 2, "db_scale": True, "threshold": threshold, "n_fft": 4096,
+        "normalize": True,
+    }
+    meta.update(meta_overrides)
+    meta = {k: v for k, v in meta.items() if v is not None}
+    (model_dir / "metadata.txt").write_text(json.dumps(meta, indent=4, sort_keys=True))
+    return model_dir
+
+
+def calibration_grid(seed):
+    """15 windows of 3 s (stride 1.5 s) of a seeded 24 s recording, through
+    the EfficientNet fixture's frontend at the exact level on the CPU,
+    repeated to 3 channels: [15, 160, 226, 3]."""
+    import torch
+
+    from audio_analysis_torch.pipeline.frontend import EXACT, spectrogram_grid
+
+    y = make_recording(seconds=24, silent_from=24.0, seed=1000 + seed)
+    windows = torch.from_numpy(np.stack([y[i * SR * 3 // 2 : i * SR * 3 // 2 + 3 * SR]
+                                         for i in range(15)]))
+    feats = spectrogram_grid(windows, level=EXACT, sr=SR, hop_length=640, n_fft=4096,
+                             n_mels=160, mel_break=1750.0, htk=True, fmin=50, fmax=11000,
+                             power=2.0, db_scale=True, normalize=True)
+    return feats.repeat_interleave(3, dim=-1)
+
+
+def bn_batch_stats(config, weights, x):
+    """{weight key: (mean, variance)} of every BatchNormalization layer's
+    input in one forward over `x` in which each BatchNormalization
+    normalises with its own input's per-channel statistics (training-mode
+    batch norm, biased variance), so each layer sees the inputs the
+    calibrated layers before it give."""
+    import torch
+
+    from audio_analysis_torch.models.keras_graph import KerasModel, _layer_name
+
+    stats = {}
+
+    class Calibrating(KerasModel):
+        def _build_layer(self, layer):
+            if layer["class_name"] != "BatchNormalization":
+                return super()._build_layer(layer)
+            key = self._prefix + self._h5key[_layer_name(layer)]
+            gamma, beta = (torch.from_numpy(np.asarray(a)) for a in self._weights[key][:2])
+            eps = layer["config"].get("epsilon", 1e-3)
+
+            def bn(args, kwargs):
+                x = args[0]
+                mean, var = x.mean(dim=(0, 1, 2)), x.var(dim=(0, 1, 2), unbiased=False)
+                stats[key] = (mean.numpy(), var.numpy())
+                return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
+
+            return bn
+
+    with torch.inference_mode():
+        Calibrating(config, weights)(x)
+    return stats
 
 
 def compare_results(a, b, confidence_tol=1):
@@ -700,16 +860,19 @@ def without_times(results):
     }} for r in results]
 
 
-def profile_run(run):
-    """One more warm run (``run()`` returns (result, wall, launches)) under
-    torch.profiler: device busy time (the union of the device's kernel
-    intervals) against the run's wall time, and device time by kernel
-    name."""
+def profile_device(fn):
+    """fn() under torch.profiler, to a synchronize: wall time (host clock),
+    device busy time (the union of the device's kernel intervals), idle
+    share, kernel count, device time by kernel name and the host's own time
+    (self CPU time) by operator."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall, _ = run()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
@@ -725,11 +888,99 @@ def profile_run(run):
             n, t = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
     return dict(
         profiled_wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
         idle_share=1.0 - busy / 1e3 / (wall * 1e3), device_kernels=len(spans),
         top=[[name[:70], n, t / 1e3] for name, (n, t) in top],
+        host_top=[[a.key[:50], a.count, a.self_cpu_time_total / 1e3] for a in host],
     )
+
+
+def count_labels(results):
+    """Predictions above threshold over result JSONs."""
+    return sum(len(r["predictions"]) for res in results for t in res["species_identify"]
+               for r in t.get("model_results", []))
+
+
+def effnet_grid(pcm, n=EFFNET_WINDOWS):
+    """[n, 160, 226, 3] features of `n` 3 s windows of the recording's
+    sound, through the EfficientNet fixture's frontend (exact level) on the
+    card."""
+    import torch
+
+    from audio_analysis_torch.pipeline.frontend import EXACT, spectrogram_grid
+
+    y = torch.from_numpy(pcm).to(torch.device("cuda"))
+    bases = np.arange(n) * ((int(SILENT_FROM * SR) - 3 * SR) // n)
+    windows = torch.stack([y[b : b + 3 * SR] for b in bases])
+    feats = spectrogram_grid(windows, level=EXACT, sr=SR, hop_length=640, n_fft=4096,
+                             n_mels=160, mel_break=1750.0, htk=True, fmin=50, fmax=11000,
+                             power=2.0, db_scale=True, normalize=True)
+    return feats.repeat_interleave(3, dim=-1).contiguous()
+
+
+def check_efficientnet(model_dir, grid):
+    """EfficientNetB0 alone on `grid` [n, 160, 226, 3]: float32 on the card
+    (TF32 off) against float32 on the CPU (max abs <= EFFNET_F32_TOL),
+    bfloat16 on the card against float32 on the card (max abs <=
+    EFFNET_BF16_MAX, mean <= EFFNET_BF16_MEAN, the same argmax wherever
+    float32's top two are more than EFFNET_BF16_MAX apart); ms per forward
+    at both dtypes (CUDA events), windows/s, and one profiled forward of
+    each: the host's time to enqueue it (``enqueue_ms``) against its wall
+    time, device busy time and idle share. Returns the measurement."""
+    import torch
+
+    from audio_analysis_torch.models import KerasModel
+
+    path = Path(model_dir) / "audioModel.keras"
+    dev = torch.device("cuda")
+    nets = {"float32": KerasModel.load(path).to(dev),
+            "bfloat16": KerasModel.load(path, compute_dtype="bfloat16").to(dev)}
+    m = {"windows": int(grid.shape[0]), "shape": list(grid.shape)}
+    with torch.inference_mode():
+        probs = {k: net(grid) for k, net in nets.items()}
+        torch.cuda.synchronize()
+        cpu = KerasModel.load(path)(grid.cpu())
+        for k, p in probs.items():
+            if p.shape != (grid.shape[0], len(EFFNET_LABELS)) or not bool(torch.isfinite(p).all()):
+                raise AssertionError(f"EfficientNetB0 {k}: shape {tuple(p.shape)} or non-finite")
+        f32, bf16 = probs["float32"], probs["bfloat16"]
+        m["f32_card_vs_cpu_max_abs"] = float((f32.cpu() - cpu).abs().max())
+        dev_b = (bf16 - f32).abs()
+        m["bf16_vs_f32_max_abs"], m["bf16_vs_f32_mean_abs"] = float(dev_b.max()), float(dev_b.mean())
+        top2 = f32.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > EFFNET_BF16_MAX
+        m["argmax_clear"] = int(clear.sum())
+        m["argmax_flips_where_clear"] = int(((bf16.argmax(1) != f32.argmax(1)) & clear).sum())
+        m["f32_argmax_counts"] = torch.bincount(f32.argmax(1), minlength=8).tolist()
+        m["f32_max_prob"] = float(f32.max())
+        for k, net in nets.items():
+            ms = time_ms(lambda: net(grid), 10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net(grid)
+            enqueue = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof = profile_device(lambda: net(grid))
+            m[k] = dict(ms=ms, windows_per_s=grid.shape[0] / ms * 1e3, enqueue_ms=enqueue * 1e3,
+                        wall_ms=wall * 1e3, host_share=enqueue / wall,
+                        **{key: prof[key] for key in ("profiled_wall_ms", "device_busy_ms",
+                                                      "idle_share", "device_kernels", "top",
+                                                      "host_top")})
+            m[k]["top"] = m[k]["top"][:6]
+    log(json.dumps({"efficientnet_b0": m}))
+    if not m["f32_card_vs_cpu_max_abs"] <= EFFNET_F32_TOL:
+        raise AssertionError(f"EfficientNetB0 float32 card vs CPU: {m['f32_card_vs_cpu_max_abs']:.3g}"
+                             f" (limit {EFFNET_F32_TOL})")
+    if not (m["bf16_vs_f32_max_abs"] <= EFFNET_BF16_MAX
+            and m["bf16_vs_f32_mean_abs"] <= EFFNET_BF16_MEAN):
+        raise AssertionError(f"EfficientNetB0 bfloat16 vs float32: {m['bf16_vs_f32_max_abs']:.3g} "
+                             f"max, {m['bf16_vs_f32_mean_abs']:.3g} mean")
+    if m["argmax_flips_where_clear"]:
+        raise AssertionError("EfficientNetB0 bfloat16 changes a clear argmax")
+    return m
 
 
 def summary_of(res):
@@ -787,6 +1038,9 @@ def main():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # what this machine has; the port reads .keras with neither
+    log("importable: " + ", ".join(
+        f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}" for m in ("h5py", "tensorflow")))
     from audio_analysis_torch.io.audio import write_wav
     from audio_analysis_torch.ops import cuda as kcuda
 
@@ -839,7 +1093,7 @@ def main():
             raise AssertionError(f"unexpected result: {summary_of(gpu_res)}")
 
         log(json.dumps({"profile": "warm", "device": "cuda",
-                        **profile_run(lambda: run_cli(wav, model_dir, "cuda"))}))
+                        **profile_device(lambda: run_cli(wav, model_dir, "cuda"))}))
 
         t0 = time.perf_counter()
         check_golden("cuda")
@@ -917,7 +1171,7 @@ def main():
         if without_times(res[:8]) != without_times(batch_runs["warm"]):
             raise AssertionError("the backlog's first batch differs from the warm batch")
         log(json.dumps({"profile": "batch warm", "device": "cuda",
-                        **profile_run(lambda: run_batch_cli(wavs, models, "cuda"))}))
+                        **profile_device(lambda: run_batch_cli(wavs, models, "cuda"))}))
 
         cpu_batch, wall, cpu_launches = run_batch_cli(wavs[:4], models, "cpu")
         log(json.dumps({"batch_run": "cpu", "device": "cpu", "recordings": len(cpu_batch),
@@ -930,6 +1184,75 @@ def main():
         log(json.dumps({"fast_card_vs_cpu": len(cpu_batch), "max_confidence_diff": worst}))
         os.environ.pop("AAT_FAST")
 
+        # EfficientNetB0 (the reference's flagship classifier), read from
+        # .keras by the port's HDF5 reader: alone, then through the exact
+        # analyse CLI and the fast batch
+        t0 = time.perf_counter()
+        effnet = efficientnet_fixture(tmp / "effnet", seed=0)
+        effnet_fast = tmp / "effnet-fast"
+        shutil.copytree(effnet, effnet_fast)
+        meta = json.loads((effnet_fast / "metadata.txt").read_text())
+        (effnet_fast / "metadata.txt").write_text(json.dumps(
+            {**meta, "threshold": EFFNET_FAST_THRESHOLD}, indent=4, sort_keys=True))
+        log(f"EfficientNetB0 fixture written in {time.perf_counter() - t0:.1f} s")
+        effnet_model = check_efficientnet(effnet, effnet_grid(pcm))
+
+        eff_runs = {}
+        for tag in ("cold", "warm"):
+            res, wall, eff_launches = run_cli(wav, effnet, "cuda")
+            eff_runs[tag] = res
+            log(json.dumps({"cli_run": f"efficientnet {tag}", "device": "cuda", "wall_s": wall,
+                            "launches": eff_launches, "labels": count_labels([res]),
+                            **summary_of(res)}))
+            require_launches(f"efficientnet {tag} run", eff_launches, exact_path)
+        if eff_runs["warm"]["species_identify"] != eff_runs["cold"]["species_identify"]:
+            raise AssertionError("the warm EfficientNet run differs from the cold run")
+        cpu_res, wall, cpu_launches = run_cli(wav, effnet, "cpu")
+        log(json.dumps({"cli_run": "efficientnet cpu", "device": "cpu", "wall_s": wall,
+                        "labels": count_labels([cpu_res]), **summary_of(cpu_res)}))
+        if any(cpu_launches.values()):
+            raise AssertionError(f"the CPU run launched kernels: {cpu_launches}")
+        if not count_labels([cpu_res]):
+            raise AssertionError("the EfficientNet CLI run on the CPU labels no track")
+        worst = compare_results(eff_runs["cold"], cpu_res, confidence_tol=1)
+        log(json.dumps({"efficientnet_cli_card_vs_cpu": True, "max_confidence_diff": worst}))
+
+        from audio_analysis_torch.io.modelconfig import ModelConfig
+        from audio_analysis_torch.models.registry import _resolved_compute_dtype
+
+        os.environ["AAT_FAST"] = "1"
+        if _resolved_compute_dtype(ModelConfig.load(effnet_fast)) != "bfloat16":
+            raise AssertionError("AAT_FAST does not resolve the Keras model to bfloat16")
+        eff_batch = {}
+        for tag in ("cold", "warm"):
+            timer = StageTimer()
+            res, wall, eff_batch_launches = run_batch_cli(wavs, [effnet_fast], "cuda", timer)
+            eff_batch[tag] = res
+            log(json.dumps({"batch_run": f"efficientnet {tag}", "device": "cuda",
+                            "recordings": len(res), "wall_s": wall,
+                            "audio_s_per_s": len(res) * SECONDS / wall,
+                            "launches": eff_batch_launches, "timing": timer.as_dict(),
+                            "labels": count_labels([r["analysis"] for r in res])}))
+            require_launches(f"efficientnet batch {tag} run", eff_batch_launches, fast_path)
+        if without_times(eff_batch["warm"]) != without_times(eff_batch["cold"]):
+            raise AssertionError("the warm EfficientNet batch differs from the cold batch")
+        log(json.dumps({"profile": "efficientnet batch warm", "device": "cuda",
+                        **profile_device(lambda: run_batch_cli(wavs, [effnet_fast], "cuda"))}))
+        cpu_batch, wall, cpu_launches = run_batch_cli(wavs[:2], [effnet_fast], "cpu")
+        log(json.dumps({"batch_run": "efficientnet cpu", "device": "cpu",
+                        "recordings": len(cpu_batch), "wall_s": wall,
+                        "labels": count_labels([r["analysis"] for r in cpu_batch])}))
+        if any(cpu_launches.values()):
+            raise AssertionError(f"the CPU batch launched kernels: {cpu_launches}")
+        if not count_labels([r["analysis"] for r in cpu_batch]):
+            raise AssertionError("the EfficientNet batch on the CPU labels no track")
+        worst = 0
+        for g, c in zip(eff_batch["cold"], cpu_batch):
+            worst = max(worst, compare_results(g["analysis"], c["analysis"], confidence_tol=2))
+        log(json.dumps({"efficientnet_fast_card_vs_cpu": len(cpu_batch),
+                        "max_confidence_diff": worst}))
+        os.environ.pop("AAT_FAST")
+
     out = []
     for name, m in kernels.items():
         base = name.split("[")[0]
@@ -940,7 +1263,9 @@ def main():
             "name", "route", "source", "replaces")} | {"launches": n} | {
             "launches_by_path": {"analyse_exact": launches[base],
                                  "batch_fast": batch_launches[base],
-                                 "backlog_fast": backlog_launches[base]}} | {
+                                 "backlog_fast": backlog_launches[base],
+                                 "analyse_exact_efficientnet": eff_launches[base],
+                                 "batch_fast_efficientnet": eff_batch_launches[base]}} | {
             k: m.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "max_rel", "shape")})
         if base in DIRECT:  # the float64 DFTs: which route, and the direct route's count
@@ -951,6 +1276,10 @@ def main():
             out[-1] |= {k: m[k] for k in ("direct_ms", "stft_mel_ms", "max_rel_f64",
                                           "direct_max_rel_f64") if k in m}
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"efficientnet_b0": {k: effnet_model[k] for k in (
+        "f32_card_vs_cpu_max_abs", "bf16_vs_f32_max_abs", "bf16_vs_f32_mean_abs")} | {
+        k: {q: effnet_model[k][q] for q in ("ms", "windows_per_s", "host_share", "idle_share")}
+        for k in ("float32", "bfloat16")}}))
     log(json.dumps({"kernels": out}))
     log(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -80,7 +80,9 @@ def test_cli_json_equals_jax_cli(cli_fixture):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, in a fresh interpreter:
-    neither jax nor audio_analysis_tpu may be loaded."""
+    neither jax nor audio_analysis_tpu may be loaded, nor h5py or
+    tensorflow (the card's machine may have neither: the port reads
+    .keras archives with its own HDF5 reader)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import audio_analysis_torch as p\n"
@@ -88,7 +90,8 @@ def test_port_imports_no_jax():
         "        if not m.name.rsplit('.', 1)[-1].startswith('_')]  # not the built _ccl.so\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'audio_analysis_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'audio_analysis_tpu', 'h5py', 'tensorflow', 'keras'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad or len(mods) < 20 else 0)\n"
     )

@@ -3,6 +3,8 @@ parameter tree across with from_jax_params and gives the JAX package's
 logits (birdnet.apply) on the same seeded inputs; the NHWC layer ops keep
 TF's asymmetric SAME padding."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -120,12 +122,27 @@ def test_registry_dense_matches_jax(tmp_path, rng, activation, pool):
 
 
 def test_registry_keras_archive_not_ported(tmp_path):
+    """The registry refused Keras archives until the Keras executor was
+    ported; now an archive, or a dir holding one, loads into a KerasModel,
+    and a file that is no zip archive still raises."""
     import json
+    import shutil
+    import zipfile
 
     from audio_analysis_torch.io.modelconfig import ModelConfig
+    from audio_analysis_torch.models import KerasModel
     from audio_analysis_torch.models.registry import load_classifier
 
     (tmp_path / "metadata.txt").write_text(json.dumps({"labels": ["a"]}))
-    (tmp_path / "audioModel.keras").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        load_classifier(tmp_path / "audioModel.keras", ModelConfig.load(tmp_path), "cpu")
+    import audio_analysis_torch
+
+    archive = Path(audio_analysis_torch.__file__).parent / "data" / "efficientnet_b0_160x226_zero.keras"
+    shutil.copy(archive, tmp_path / "audioModel.keras")
+    cfg = ModelConfig.load(tmp_path)
+    for path in (tmp_path, tmp_path / "audioModel.keras"):
+        assert isinstance(load_classifier(path, cfg, "cpu"), KerasModel)
+    bad = tmp_path / "bad"
+    bad.mkdir()
+    (bad / "audioModel.keras").write_bytes(b"")
+    with pytest.raises(zipfile.BadZipFile):
+        load_classifier(bad / "audioModel.keras", cfg, "cpu")
