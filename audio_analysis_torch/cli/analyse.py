@@ -97,9 +97,9 @@ def run(argv=None):
     t0 = time.time()
 
     if args.old_cacophony_index:
-        raise NotImplementedError(
-            "--old-cacophony-index is not ported yet (ROADMAP Queue 1, item 10)"
-        )
+        from audio_analysis_torch.pipeline.old_index import calculate
+
+        summary = calculate(args.file, device=args.device)
     elif args.morepork_model:
         raise NotImplementedError(
             "--morepork-model is not ported yet (ROADMAP Queue 1, item 10)"

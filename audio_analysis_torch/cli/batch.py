@@ -174,7 +174,7 @@ def watch(args, analyzer, t0):
             for f in chunk:
                 try:
                     frames, _ = load_recording(
-                        f, resample=analyzer.sr, prefer_int16=True
+                        f, resample=analyzer.sr, prefer_int16=True, device=analyzer.device
                     )
                     recs.append(frames)
                     good.append(f)
@@ -273,7 +273,8 @@ def run(argv=None, timer=None):
             chunk = args.files[i : i + args.batch_size]
             recs, metas = [], []
             for f in chunk:
-                frames, _ = load_recording(f, resample=analyzer.sr, prefer_int16=True)
+                frames, _ = load_recording(f, resample=analyzer.sr, prefer_int16=True,
+                                           device=analyzer.device)
                 recs.append(frames)
                 metas.append(_safe_sidecar(f))
             yield chunk, recs, metas

@@ -13,12 +13,14 @@ For each recording of a [B, T] batch, on the device:
 3. the spectrogram is divided by its max over the valid frames, and the
    row and column medians come from the ``row_medians``/``col_medians``
    kernels (exactly np.median);
-4. threshold at 3x both medians, then the morphology, with the invalid
-   region (frames past the data end) set to each operation's identity
-   between stages, as OpenCV sees the truncated recording.
+4. threshold at 3x both medians; the mask is packed into 32-bit words
+   (most significant bit first), and the morphology runs on the words
+   (``ops/morphology.py::packed_erode``/``packed_dilate``), with the
+   invalid region (frames past the data end) set to each operation's
+   identity between stages, as OpenCV sees the truncated recording.
 
-The mask is packed to bits on the device (1/8 of the bytes) and goes to
-the host once, where the native CCL labels it. ``detect_batch_dispatch``
+The words' bytes are put in np.packbits' order on the device and go to the
+host once, where the native CCL labels them. ``detect_batch_dispatch``
 queues all of that for a batch, the copies included, without waiting for
 the device: on a CUDA device the copies go through pinned host memory,
 asynchronously, and an event marks their end. ``detect_batch_finish``
@@ -37,8 +39,8 @@ from audio_analysis_torch.device import to_device_async, to_host_async
 from audio_analysis_torch.ops.components import connected_components_with_stats_packed
 from audio_analysis_torch.ops.mel import fft_frequencies
 from audio_analysis_torch.ops.medians import masked_medians_rowcol
-from audio_analysis_torch.ops.melspec import stft_mag
-from audio_analysis_torch.ops.morphology import dilate, erode
+from audio_analysis_torch.ops.melspec import stft_frames, stft_mag
+from audio_analysis_torch.ops.morphology import dilate, erode, packed_dilate, packed_erode
 from audio_analysis_torch.pipeline.frontend import dft_mel, frontend_level
 
 ENDSCAN_MELS = 120
@@ -106,15 +108,38 @@ def _endscan_decision(n_valid, mx, mn, *, sr, hop_length):
     return found, flat_sec, mask_valid
 
 
+def _threshold(spec, row_medians, column_medians, col_valid):
+    """[B, bins, F] bool: above 3x both medians, in the valid frames."""
+    return (spec > 3 * column_medians) & (spec > 3 * row_medians) & col_valid[:, None, :]
+
+
 def _mask_threshold_morph(spec, row_medians, column_medians, col_valid, *, sr,
                           hop_length, n_fft):
-    """Median thresholds -> morphology over [B, bins, F]; `spec` is the
-    a_max-normalised magnitude, col_valid [B, F]. Returns a bool mask."""
-    cv = col_valid[:, None, :].to(spec.dtype)
-    inv = 1.0 - cv
-    mask = ((spec > 3 * column_medians) & (spec > 3 * row_medians)).to(spec.dtype) * cv
+    """Median thresholds -> morphology over [B, bins, F] on packed words;
+    `spec` is the a_max-normalised magnitude, col_valid [B, F]. Returns the
+    mask as int32 words [B, bins, ceil(F/32)], most significant bit first,
+    the pad bits past F zero (the JAX package's packed mask)."""
+    u = pack_words(_threshold(spec, row_medians, column_medians, col_valid))
+    cv = pack_words(col_valid)[:, None, :]  # [B, 1, W]; pad bits 0
+    inv = ~cv  # invalid columns and pad bits
     height, width = _mask_height_width(sr, hop_length, n_fft)
     # MORPH_OPEN 4x4 == erode then dilate
+    u = packed_erode(u | inv, 4, 4)
+    u = packed_dilate(u & cv, 4, 4)
+    u = packed_dilate(u & cv, height, width)
+    u = packed_erode(u | inv, height // 10, width)
+    return u & cv
+
+
+def mask_threshold_morph_plain(spec, row_medians, column_medians, col_valid, *, sr,
+                               hop_length, n_fft):
+    """The plain version of ``_mask_threshold_morph``: the same stages as
+    float 0/1 max-pools (``ops/morphology.py::dilate``/``erode``). Returns
+    the [B, bins, F] bool mask."""
+    cv = col_valid[:, None, :].to(spec.dtype)
+    inv = 1.0 - cv
+    mask = _threshold(spec, row_medians, column_medians, col_valid).to(spec.dtype)
+    height, width = _mask_height_width(sr, hop_length, n_fft)
     u = erode(torch.maximum(mask, inv), 4, 4)
     u = dilate(u * cv, 4, 4)
     u = dilate(u * cv, height, width)
@@ -124,7 +149,8 @@ def _mask_threshold_morph(spec, row_medians, column_medians, col_valid, *, sr,
 
 def detect_batch_mask(frames, n_valid, *, sr, hop_length=281, n_fft=4096, level=None):
     """[B, T] PCM (int16 or float) + valid lengths [B] -> (found [B],
-    flat_sec [B], mask [B, bins, F] bool), all on the frames' device.
+    flat_sec [B], mask [B, bins, ceil(F/32)] int32 words, most significant
+    bit first), all on the frames' device.
     ``level`` is the end-scan's frontend level (None: resolved now); the
     |STFT| and the medians are exact at every level."""
     framesf = _to_float(frames)
@@ -148,13 +174,29 @@ def detect_batch_mask(frames, n_valid, *, sr, hop_length=281, n_fft=4096, level=
 
 
 def pack_bits(mask: torch.Tensor) -> torch.Tensor:
-    """[R, C] bool -> [R, ceil(C/8)] uint8, most significant bit first
+    """[..., C] bool -> [..., ceil(C/8)] uint8, most significant bit first
     (np.packbits' layout, which the native CCL reads)."""
-    r, c = mask.shape
+    c = mask.shape[-1]
     w = -(-c // 8)
-    m = F.pad(mask.to(torch.uint8), (0, 8 * w - c)).reshape(r, w, 8)
+    m = F.pad(mask.to(torch.uint8), (0, 8 * w - c)).reshape(mask.shape[:-1] + (w, 8))
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=mask.device)
     return (m << shifts).sum(dim=-1, dtype=torch.uint8)
+
+
+def pack_words(mask: torch.Tensor) -> torch.Tensor:
+    """[..., C] bool -> [..., ceil(C/32)] int32 words, bit 31 of word j the
+    column 32 j (the JAX package's ``_pack_bits``): np.packbits' bytes, each
+    four reversed (the words are little-endian in memory)."""
+    b = pack_bits(mask)
+    b = F.pad(b, (0, -b.shape[-1] % 4))
+    return b.reshape(b.shape[:-1] + (-1, 4)).flip(-1).contiguous().view(torch.int32).squeeze(-1)
+
+
+def words_to_bytes(words: torch.Tensor, width: int) -> torch.Tensor:
+    """Inverse of ``pack_words``: [..., W] int32 words -> the first
+    ceil(width/8) bytes of each row, in np.packbits' order."""
+    b = words.contiguous().view(torch.uint8).reshape(words.shape + (4,)).flip(-1)
+    return b.reshape(words.shape[:-1] + (-1,))[..., : -(-width // 8)]
 
 
 def detect_batch_dispatch(frames, n_valid, sr, hop_length=281, n_fft=4096, level=None):
@@ -163,12 +205,12 @@ def detect_batch_dispatch(frames, n_valid, sr, hop_length=281, n_fft=4096, level
     masks, their packing to bits and the copy of the packed masks to the
     host. Returns a handle without waiting for the device."""
     n_valid = np.asarray(n_valid, dtype=np.int64).reshape(-1)
-    found, flat_sec, mask = detect_batch_mask(
+    found, flat_sec, words = detect_batch_mask(
         frames, to_device_async(torch.from_numpy(n_valid), frames.device), sr=sr,
         hop_length=hop_length, n_fft=n_fft, level=level,
     )
-    b, bins, width = mask.shape
-    packed = pack_bits(mask.reshape(b * bins, width)).reshape(b, bins, -1)
+    width = stft_frames(frames.shape[-1], n_fft, hop_length)
+    packed = words_to_bytes(words, width)
     host = [to_host_async(x) for x in (found, flat_sec, packed)]
     copied = None
     if frames.device.type == "cuda":

@@ -7,11 +7,10 @@ requested rate. Decode itself is not a TPU workload, so:
 - WAV/RIFF files are parsed natively here (PCM 8/16/24/32, IEEE float32/64)
   with zero external dependencies;
 - everything else shells out to ffmpeg / opusdec exactly like the reference
-  when those binaries exist, and raises a clean error when they don't
-  (this image ships no ffmpeg);
-- rate conversion is not ported yet: a recording at another rate than the
-  requested one raises NotImplementedError (ROADMAP Queue 1, item 10:
-  ops/resample.py).
+  when those binaries exist, and raises a clean error when they don't;
+- a recording at another rate than the requested one is resampled by
+  ``ops/resample.py`` on a device (the card unless the caller asks for the
+  CPU) and comes back as float32 numpy.
 """
 
 import logging
@@ -21,6 +20,10 @@ import subprocess
 from pathlib import Path
 
 import numpy as np
+import torch
+
+from audio_analysis_torch.device import resolve_device
+from audio_analysis_torch.ops.resample import resample as resample_on
 
 
 # ---------------------------------------------------------------------------
@@ -200,11 +203,13 @@ def _try_load_wav_pcm16(path: Path, want_sr: int):
     return None
 
 
-def load_recording(file, resample=48000, prefer_int16=False):
+def load_recording(file, resample=48000, prefer_int16=False, device=None):
     """Reference load_recording contract (src/identify_tracks.py:49-62):
-    decode at `resample` Hz (other rates raise NotImplementedError until
-    the resampler is ported). Decode failures raise a fresh exception (the reference
-    found that propagating the original hangs its docker host).
+    decode, then resample to `resample` Hz on `device` (None: the card,
+    ``device.resolve_device``; resolved only when the rates differ).
+    Returns (mono numpy PCM, rate). Decode failures raise a fresh exception
+    (the reference found that propagating the original hangs its docker
+    host).
 
     With `prefer_int16`, a mono 16-bit PCM WAV already at the target rate is
     returned as int16 (the classify/detect device programs accept it and
@@ -220,10 +225,9 @@ def load_recording(file, resample=48000, prefer_int16=False):
         logging.error("Could not load %s", file, exc_info=True)
         raise Exception(f"Could not load {file}")
     if resample is not None and int(sr) != int(resample):
-        raise NotImplementedError(
-            f"resampling {sr} Hz -> {resample} Hz is not ported yet "
-            "(ROADMAP Queue 1, item 10: ops/resample.py)"
-        )
+        x = torch.from_numpy(frames).to(resolve_device(device))
+        frames = resample_on(x, int(sr), int(resample)).cpu().numpy()
+        sr = int(resample)
     return frames, sr
 
 

@@ -9,6 +9,13 @@ frontend, each model's forward pass, the ensemble mean and the per-track
 means run as one pass over that grid (``run_group``, which batch serving
 shares). The frontend level (``frontend_level``) is resolved once per
 recording and holds for its end-scan and its classify frontend.
+
+Tracks of models whose metadata sets ``filter_freq`` or ``filter_below``
+are band-passed first (reference src/identify_tracks.py:152-161): each such
+track's samples are cut out, stacked [n_filtered, max_len] on the device
+and filtered by ``ops/filters.py::sosfilt_array`` with one Butterworth
+filter a row, and the track's windows in the grid are gathered again from
+its filtered samples (``filter_windows``).
 """
 
 import logging
@@ -29,6 +36,7 @@ from audio_analysis_torch.device import resolve_device
 from audio_analysis_torch.io.audio import load_recording
 from audio_analysis_torch.io.modelconfig import ModelConfig
 from audio_analysis_torch.models.registry import load_classifier
+from audio_analysis_torch.ops.filters import butter_bandpass_sos, sosfilt_array
 from audio_analysis_torch.pipeline.frontend import frontend_level, spectrogram_grid
 from audio_analysis_torch.pipeline.samples import (
     gather_windows,
@@ -78,6 +86,70 @@ def features_for_config(grid, sr, cfg: ModelConfig, level=None):
     )
 
 
+def float_pcm(frames: torch.Tensor) -> torch.Tensor:
+    """int16 PCM -> float32 /32768 (the 16-bit decode scaling); float PCM
+    as float32."""
+    if frames.dtype == torch.int16:
+        return frames.to(torch.float32) / 32768.0
+    return frames.to(torch.float32)
+
+
+def _track_segment(frames, g0, g1):
+    """frames[g0:g1] of a [T] tensor, the start clamped so that the slice
+    fits, as the JAX package's ``dynamic_slice`` takes it."""
+    start = max(0, min(g0, frames.shape[-1] - (g1 - g0)))
+    return frames[start : start + g1 - g0]
+
+
+def filter_windows(grid, recordings, sr):
+    """Band-pass the windows of filtered tracks (the JAX package's
+    ``_apply_track_filters`` and ``_overwrite_filtered_rows``).
+
+    ``recordings`` lists (frames [T] float32, plan, row0): a recording's
+    PCM, its window plan (``plan.filter_specs`` names the filtered tracks
+    and their bands, ``plan.track_bounds`` their samples) and the grid row
+    of the plan's first window. Every filtered track's samples are stacked
+    [n_filtered, max_len] (zero-padded) and filtered in one
+    ``sosfilt_array`` call, one Butterworth filter a row (identity sections
+    pad shorter filters); then each of the track's windows is gathered
+    again from its filtered samples, in the track's own coordinates, and
+    zeroed outside [valid_lo, valid_hi). Returns the grid, unchanged when no
+    track is filtered."""
+    segs, sos, rows, bases, vlo, vhi, which = [], [], [], [], [], [], []
+    for frames, plan, row0 in recordings:
+        for ti, low, high in plan.filter_specs:
+            g0, g1 = plan.track_bounds[ti]
+            sel = np.nonzero(plan.track_index == ti)[0]
+            segs.append(_track_segment(frames, g0, g1))
+            sos.append(butter_bandpass_sos(float(low), float(high), float(sr)))
+            rows.append(row0 + sel)
+            bases.append(plan.base[sel].astype(np.int64) - g0)
+            vlo.append(plan.valid_lo[sel])
+            vhi.append(plan.valid_hi[sel])
+            which.append(np.full(len(sel), len(segs) - 1))
+    if not segs:
+        return grid
+    max_len = max(len(x) for x in segs)
+    n_sections = max(len(s) for s in sos)
+    sos_arr = np.zeros((len(sos), n_sections, 5))
+    sos_arr[:, :, 0] = 1.0  # identity sections for padding
+    for i, s in enumerate(sos):
+        sos_arr[i, : len(s)] = s
+    stack = torch.stack([torch.nn.functional.pad(x, (0, max_len - len(x))) for x in segs])
+    filtered = sosfilt_array(sos_arr, stack)
+
+    dev = grid.device
+    as_t = lambda parts: torch.from_numpy(np.concatenate(parts).astype(np.int64)).to(dev)
+    rows, bases, lo, hi, which = (as_t(a) for a in (rows, bases, vlo, vhi, which))
+    j = torch.arange(grid.shape[-1], device=dev)
+    idx = (bases[:, None] + j[None, :]).clamp_(0, max_len - 1)
+    win = filtered[which[:, None], idx]
+    valid = (j[None, :] >= lo[:, None]) & (j[None, :] < hi[:, None])
+    grid = grid.clone()
+    grid[rows] = torch.where(valid, win, 0.0)
+    return grid
+
+
 def _track_means(per_window_probs, track_index, n_tracks):
     """Mean over each track's windows (reference: np.mean(predictions,
     axis=0) per track, :551). Windows indexed n_tracks (the bucket padding)
@@ -107,11 +179,8 @@ def run_group(models, feat_cfg, frames_flat, padded_plan, n_tracks, is_efficient
     3-channel repeat follows the current group (:539-540). Returns
     (track means, features)."""
     if feats is None:
-        framesf = frames_flat.to(torch.float32)
-        if frames_flat.dtype == torch.int16:
-            framesf = framesf / 32768.0
-        feats = features_for_config(gather_windows(framesf, padded_plan), sr, feat_cfg,
-                                    level=level)
+        feats = features_for_config(gather_windows(float_pcm(frames_flat), padded_plan), sr,
+                                    feat_cfg, level=level)
     x = feats.repeat_interleave(3, dim=-1) if is_efficientnet else feats
     probs = None
     for model in models:
@@ -127,7 +196,7 @@ def classify(file, models, analyse_tracks, meta_data=None, rng=np.random, timer=
     (tracks, length, signals, raw_length, bird_labels)."""
     timer = timer or StageTimer()
     with timer.stage("decode"):
-        frames, sr = load_recording(file, prefer_int16=True)
+        frames, sr = load_recording(file, prefer_int16=True, device=device)
     return classify_frames(
         frames, sr, models, analyse_tracks, meta_data, rng=rng, timer=timer, device=device
     )
@@ -212,12 +281,14 @@ def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.r
             # group, keep iterating so later groups add their bird_labels
             # (src/identify_tracks.py:494, 537-538)
             continue
-        if plan.filter_specs:
-            raise NotImplementedError(
-                "band-pass filtered tracks are not ported yet (ROADMAP Queue 1, item 9)"
-            )
 
         with timer.stage("infer"):
+            if plan.filter_specs and feats_cache is None:
+                # the filtered tracks' windows come from their band-passed
+                # samples; later groups reuse these features as they are
+                framesf = float_pcm(frames_dev)
+                grid = filter_windows(gather_windows(framesf, plan), [(framesf, plan, 0)], sr)
+                feats_cache = features_for_config(grid, sr, feat_cfg, level=level)
             # like the reference's ``data = track_data`` (:525-528): later
             # groups reuse the FIRST group's features verbatim
             track_probs, feats_cache = run_group(

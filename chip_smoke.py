@@ -38,7 +38,17 @@
    reproduces the committed golden snapshot on the card, and runs the CLI
    once more with ``--device cpu`` (the plain versions) and requires the
    card's result to equal it: signals, length, chirps, cacophony index and
-   labels identical, confidences within 1;
+   labels identical, confidences within 1; holds the packed-word detection
+   morphology against its float max-pool plain version bit for bit on the
+   cold run's own [1, 2049, T] spectrogram and medians (device ms of both,
+   the host's time to enqueue it, its kernel count);
+   then the same recording written at 44.1, 32 and 96 kHz, each loaded
+   through ``load_recording`` on the card and on the CPU (48 kHz, within
+   RESAMPLE_TOL; the card's resample timed beside its bound), and the CLI on the 44.1 kHz WAV (cold, warm, CPU;
+   the same launches as at 48 kHz); then the CLI with two band-pass TuiNets
+   (``filter_below: 9000`` and ``filter_freq: true``) on the card and on the
+   CPU: at least one track filtered and labelled, the filter's time on the
+   captured track stack;
 6. the fast level's batch path: runs the batch CLI (``AAT_FAST=1``,
    ``batch -o --bird-model B --bird-model PRE --batch-size 8 --seed 0`` on
    the first eight WAVs) cold and then warm with the counts reset around each
@@ -50,12 +60,18 @@
    beside the direct route and stft_mel; the [8, T] detection signals, each
    zeroed past its own data end; the [8, 2049, T] normalised spectrogram,
    for both medians);
+   holds the packed-word detection morphology against its float max-pool
+   plain version bit for bit on the batch's own spectrogram and medians
+   (device ms of both, the host's time to enqueue it, its kernel count),
+   profiles one detection of the batch (no max-pool kernel may run),
    then runs a backlog of 24 WAVs (three batches through the pipelined
    stream) and prints its audio seconds per second over the whole run,
    profiles one more warm batch, and runs the first four WAVs with
    ``--device cpu`` and requires the card's results to equal them
    (confidences within 2: the bf16 TuiNet's convolutions round at other
-   places on cuDNN and the CPU);
+   places on cuDNN and the CPU); then the batch again with a band-pass bird
+   model (``filter_below: 9000``) and the pre-model, cold and warm (equal),
+   the first two on the CPU (confidences within 2);
 7. EfficientNetB0 (``efficientnet_fixture``: the committed zero-weight
    archive with seeded weights, read by the port's HDF5 reader): alone on a
    [64, 160, 226, 3] grid of the recording's features, float32 on the card
@@ -68,9 +84,12 @@
    ``AAT_FAST=1`` batch CLI on the eight WAVs with it (bfloat16 by the
    preset; cold, warm, profiled, the first two on the CPU, confidences
    within 2); every kernel count is reset around each run and checked as on
-   the TuiNet paths;
-8. prints one JSON line of the EfficientNetB0 numbers, one describing every
-   kernel, then the last line ``{"ok": true, "device": {...}}``.
+   the TuiNet paths, and the batch's profile may hold no max-pool kernel;
+8. ``analyse --old-cacophony-index`` on the 48 kHz and the 44.1 kHz WAV,
+   the card's table equal to the CPU's;
+9. prints one JSON line of the EfficientNetB0 numbers, one of the packed
+   morphology's, one describing every kernel, the card's name and power
+   limit, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
 line; without a CUDA device it exits non-zero at once.
@@ -83,6 +102,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -117,6 +137,15 @@ EFFNET_F32_TOL = 1e-4  # card float32 vs CPU float32, max abs of the probabiliti
 # network's probabilities by up to 0.112 (mean 0.0063) in the JAX package's
 # own bfloat16 mode (CPU, 30 windows; tests/test_torch_keras_graph.py)
 EFFNET_BF16_MAX, EFFNET_BF16_MEAN = 0.15, 0.02
+RESAMPLE_RATES = (44100, 32000, 96000)  # the recordings written at other rates
+RESAMPLE_TOL = 1e-5  # card vs CPU, max abs of the 48 kHz PCM
+# band-pass models: at the exact level (float32) above 1/8, the mean of 8
+# labels' probabilities, so every classified track has a label at least; in
+# the fast batch (bfloat16) in the gap 15 | 24 of the bird model's track
+# confidences in the first two recordings on the CPU, so that a small
+# card-vs-CPU difference flips no label
+BANDPASS_THRESHOLD = 0.13
+BANDPASS_FAST_THRESHOLD = 0.2
 
 
 def log(msg):
@@ -740,7 +769,8 @@ def check_bf16(pcm):
 @contextlib.contextmanager
 def capture_inputs(captured):
     """Within the block, record a copy of the first input of each kind that
-    the fast batch path passes to stft_mel_bf16 (``batch end-scan``: the
+    a detection path (the fast batch's, or the exact analyse's) passes to
+    stft_mel_bf16 (``batch end-scan``: the
     call with a ``frames`` prefix; ``batch classify``: the window grid) and
     to stft_mag (``batch``: the batch's detection signals, zeroed past each
     recording's data end) and to the medians (``batch medians``: the
@@ -892,6 +922,7 @@ def profile_device(fn):
     return dict(
         profiled_wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
         idle_share=1.0 - busy / 1e3 / (wall * 1e3), device_kernels=len(spans),
+        max_pool_kernels=sum(n for name, (n, _) in by_name.items() if "max_pool" in name),
         top=[[name[:70], n, t / 1e3] for name, (n, t) in top],
         host_top=[[a.key[:50], a.count, a.self_cpu_time_total / 1e3] for a in host],
     )
@@ -981,6 +1012,158 @@ def check_efficientnet(model_dir, grid):
     if m["argmax_flips_where_clear"]:
         raise AssertionError("EfficientNetB0 bfloat16 changes a clear argmax")
     return m
+
+
+def check_resample(tmp):
+    """The seeded 60 s recording written as 16-bit WAVs at 44.1, 32 and
+    96 kHz, each loaded through ``load_recording`` on the card and on the
+    CPU: 48 kHz float32 of the same length, card vs CPU within
+    RESAMPLE_TOL. Times the card's resample of the decoded PCM (CUDA events
+    over 5 runs) beside its bound: the PCM read and written once, and the
+    filter's nonzero multiply-adds at the float32 rate (the polyphase bank
+    pads every phase to one width with zeros; those products are the
+    convolution's waste, not the function's work). Returns {rate: WAV path}."""
+    import torch
+
+    from audio_analysis_torch.io.audio import load_audio_mono, load_recording, write_wav
+    from audio_analysis_torch.ops.resample import _filter_const, _polyphase_bank, resample
+
+    wavs = {}
+    for sr in RESAMPLE_RATES:
+        wavs[sr] = tmp / f"rec60_{sr}.wav"
+        write_wav(wavs[sr], make_recording(sr=sr), sr)
+        card, card_sr = load_recording(wavs[sr], device="cuda")
+        cpu, cpu_sr = load_recording(wavs[sr], device="cpu")
+        if (card_sr, cpu_sr, card.shape, card.dtype) != (SR, SR, (SECONDS * SR,), np.float32) \
+                or cpu.shape != card.shape or not np.isfinite(card).all():
+            raise AssertionError(f"load_recording at {sr} Hz: {card_sr} Hz, {card.shape}, "
+                                 f"{card.dtype} on the card; {cpu_sr} Hz, {cpu.shape} on the CPU")
+        err = float(np.abs(card - cpu).max())
+        x = torch.from_numpy(load_audio_mono(wavs[sr])[0]).to(torch.device("cuda"))
+        g = math.gcd(SR, sr)
+        up, down = SR // g, sr // g
+        if up == 1:
+            macs = conv_macs = SECONDS * SR * len(_filter_const(up, down))
+        else:
+            bank = _polyphase_bank(up, down)[0]
+            n_blocks = -(-SECONDS * SR // up)
+            macs, conv_macs = n_blocks * int(np.count_nonzero(bank)), n_blocks * bank.size
+        byte_ms = (x.numel() + SECONDS * SR) * 4 / HBM_BYTES_PER_S * 1e3
+        m = dict(rate=sr, up=up, down=down, max_abs_card_vs_cpu=err,
+                 ms=time_ms(lambda: resample(x, sr, SR), 5), macs=macs, conv_macs=conv_macs,
+                 bound_ms=max(byte_ms, 2 * macs / F32_FLOPS * 1e3))
+        log(json.dumps({"resample": m}))
+        if not err <= RESAMPLE_TOL:
+            raise AssertionError(f"resample at {sr} Hz: card vs CPU {err:.3g} "
+                                 f"(limit {RESAMPLE_TOL})")
+    return wavs
+
+
+@contextlib.contextmanager
+def capture_sosfilt(stacks):
+    """Within the block, append each band-pass call's (coefficients, track
+    stack) to `stacks`; the filter still runs."""
+    from audio_analysis_torch.pipeline import classify
+
+    real = classify.sosfilt_array
+
+    def recording(sos, x):
+        stacks.append((sos, x.clone()))
+        return real(sos, x)
+
+    classify.sosfilt_array = recording
+    try:
+        yield stacks
+    finally:
+        classify.sosfilt_array = real
+
+
+def sosfilt_timing(stacks):
+    """The band-pass filter on the first captured track stack, on the card:
+    rows, samples and ms (CUDA events over 5 runs)."""
+    from audio_analysis_torch.ops.filters import sosfilt_array
+
+    sos, x = stacks[0]
+    return dict(rows=int(x.shape[0]), samples=int(x.shape[1]),
+                sosfilt_ms=time_ms(lambda: sosfilt_array(sos, x), 5))
+
+
+def check_packed_morphology(path, spec, nvf):
+    """The detection mask tail on a path's own normalised spectrogram `spec`
+    [B, bins, T] and valid frames `nvf`: the packed-word morphology on the
+    card bit for bit against the float max-pool plain version (both as
+    np.packbits bytes), with the device ms of each (CUDA events), the host's
+    time to enqueue the packed path (median of 5 calls, each from an idle
+    card), and its device kernels (torch.profiler). Returns the
+    measurement."""
+    import torch
+
+    from audio_analysis_torch.detect import signal_noise as sn
+    from audio_analysis_torch.ops.medians import masked_medians_rowcol
+
+    row_m, col_m = masked_medians_rowcol(spec, nvf)
+    col_valid = torch.arange(spec.shape[-1], device=spec.device)[None, :] < nvf[:, None]
+    kw = dict(sr=SR, hop_length=281, n_fft=4096)
+    args = (spec, row_m, col_m, col_valid)
+    packed = sn.words_to_bytes(sn._mask_threshold_morph(*args, **kw), spec.shape[-1])
+    plain = sn.pack_bits(sn.mask_threshold_morph_plain(*args, **kw))
+    torch.cuda.synchronize()
+    differ = int((packed != plain).sum())
+    m = dict(path=path, shape=list(spec.shape), set_bytes=int((packed != 0).sum()),
+             differing_bytes=differ,
+             ms=time_ms(lambda: sn._mask_threshold_morph(*args, **kw), 5),
+             plain_ms=time_ms(lambda: sn.mask_threshold_morph_plain(*args, **kw), 3))
+    enqueue = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sn._mask_threshold_morph(*args, **kw)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    m["host_enqueue_ms"] = statistics.median(enqueue)
+    prof = profile_device(lambda: sn._mask_threshold_morph(*args, **kw))
+    m.update(device_kernels=prof["device_kernels"], device_busy_ms=prof["device_busy_ms"],
+             profiled_wall_ms=prof["profiled_wall_ms"], max_pool_kernels=prof["max_pool_kernels"])
+    log(json.dumps({"packed_morphology": m}))
+    if differ or not m["set_bytes"]:
+        raise AssertionError(f"packed morphology ({path}): {differ} bytes differ from the float "
+                             f"max-pool version ({m['set_bytes']} set)")
+    return m
+
+
+def detection_profile(wavs):
+    """One detection of the fast batch's recordings (int16 [B, T] on the
+    card, the fast level) under torch.profiler; it must launch no
+    max-pool kernel."""
+    import torch
+
+    from audio_analysis_torch.detect.signal_noise import detect_batch_dispatch, detect_batch_finish
+    from audio_analysis_torch.io.audio import load_recording
+    from audio_analysis_torch.pipeline.frontend import frontend_level
+
+    recs = [load_recording(w, prefer_int16=True)[0] for w in wavs]
+    frames = torch.from_numpy(np.stack(recs)).to(torch.device("cuda"))
+    n_valid = [len(r) for r in recs]
+    level = frontend_level()
+    detect_batch_finish(detect_batch_dispatch(frames, n_valid, SR, level=level))
+    prof = profile_device(lambda: detect_batch_finish(
+        detect_batch_dispatch(frames, n_valid, SR, level=level)))
+    log(json.dumps({"profile": "batch detection", "device": "cuda", **prof}))
+    if prof["max_pool_kernels"]:
+        raise AssertionError(f"detection launched {prof['max_pool_kernels']} max-pool kernels")
+    return prof
+
+
+def run_old_index(wav, device):
+    """``analyse --old-cacophony-index`` in this process; returns its JSON
+    without the wall-clock field."""
+    from audio_analysis_torch.cli.analyse import run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run(["-o", "--old-cacophony-index", str(wav), "--device", device])
+    res = json.loads(buf.getvalue())
+    res.pop("processing_time_seconds")
+    return res
 
 
 def summary_of(res):
@@ -1079,9 +1262,10 @@ def main():
         exact_path = {"stft_mel": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
                       "stft_mel_bf16": 0, "stft_mel.direct": 0, "stft_mag.direct": 0,
                       "stft_mel_bf16.direct": 0}
-        runs = {}
+        runs, exact_captured = {}, {}
         for tag in ("cold", "warm"):
-            res, wall, launches = run_cli(wav, model_dir, "cuda")
+            with capture_inputs(exact_captured) if tag == "cold" else contextlib.nullcontext():
+                res, wall, launches = run_cli(wav, model_dir, "cuda")
             runs[tag] = (res, launches)
             log(json.dumps({"cli_run": tag, "device": "cuda", "wall_s": wall,
                             "launches": launches, **summary_of(res)}))
@@ -1094,6 +1278,10 @@ def main():
 
         log(json.dumps({"profile": "warm", "device": "cuda",
                         **profile_device(lambda: run_cli(wav, model_dir, "cuda"))}))
+        _, spec_1, kw_1 = exact_captured["batch medians"]  # the exact path's [1, 2049, T]
+        morphology = {"analyse_exact": check_packed_morphology("analyse_exact", spec_1,
+                                                               kw_1["nvf"])}
+        del exact_captured, spec_1, kw_1
 
         t0 = time.perf_counter()
         check_golden("cuda")
@@ -1106,6 +1294,48 @@ def main():
             raise AssertionError(f"the CPU run launched kernels: {cpu_launches}")
         compare_results(gpu_res, cpu_res)
         log("card result equals the CPU result")
+
+        # recordings at other rates: the resampler, then the exact analyse
+        # of the 44.1 kHz WAV (cold, warm, CPU)
+        t0 = time.perf_counter()
+        rate_wavs = check_resample(tmp)
+        runs44 = {}
+        for tag in ("cold", "warm"):
+            res, wall, launches44 = run_cli(rate_wavs[44100], model_dir, "cuda")
+            runs44[tag] = res
+            log(json.dumps({"cli_run": f"44.1 kHz {tag}", "device": "cuda", "wall_s": wall,
+                            "launches": launches44, **summary_of(res)}))
+            require_launches(f"44.1 kHz {tag} run", launches44, exact_path)
+        if runs44["warm"]["species_identify"] != runs44["cold"]["species_identify"]:
+            raise AssertionError("the warm 44.1 kHz run differs from the cold run")
+        if runs44["cold"]["duration"] != SECONDS or not runs44["cold"]["chirps"]["signals"]:
+            raise AssertionError(f"unexpected 44.1 kHz result: {summary_of(runs44['cold'])}")
+        cpu44, wall, _ = run_cli(rate_wavs[44100], model_dir, "cpu")
+        worst = compare_results(runs44["cold"], cpu44, confidence_tol=1)
+        log(json.dumps({"cli_run": "44.1 kHz cpu", "device": "cpu", "wall_s": wall,
+                        "max_confidence_diff": worst, "phase_s": time.perf_counter() - t0}))
+
+        # band-pass models (every track of the fixture ends below 9 kHz)
+        bp_launches = None
+        for kind, meta in (("filter_below", dict(filter_below=9000)),
+                           ("filter_freq", dict(filter_freq=True))):
+            bp_dir = write_tuinet_model(tmp / f"bandpass-{kind}", name=f"bandpass-{kind}",
+                                        threshold=BANDPASS_THRESHOLD, **meta)
+            stacks = []
+            with capture_sosfilt(stacks):
+                res, wall, bl = run_cli(wav, bp_dir, "cuda")
+            require_launches(f"band-pass {kind} run", bl, exact_path)
+            bp_launches = bp_launches or bl
+            cpu_bp, cpu_wall, _ = run_cli(wav, bp_dir, "cpu")
+            worst = compare_results(res, cpu_bp, confidence_tol=1)
+            labels = count_labels([res])
+            log(json.dumps({"cli_run": f"band-pass {kind}", "device": "cuda", "wall_s": wall,
+                            "cpu_wall_s": cpu_wall, "tracks": len(res["species_identify"]),
+                            "labels": labels, "max_confidence_diff": worst, "launches": bl,
+                            **(sosfilt_timing(stacks) if stacks else {})}))
+            if not stacks or not labels:
+                raise AssertionError(f"band-pass {kind}: {len(stacks)} filter calls, "
+                                     f"{labels} labels")
 
         # the fast level's batch path: 8 x 60 s, AAT_FAST=1
         from audio_analysis_torch.utils.runtime import StageTimer
@@ -1157,7 +1387,10 @@ def main():
                 kernels[col] = col_medians_entry(col, x)
             else:
                 kernels[name] = bf16_entry(name, x, kw, compare=True)
-        del captured
+        _, spec_b, kw_b = captured["batch medians"]
+        morphology["batch_fast"] = check_packed_morphology("batch_fast", spec_b, kw_b["nvf"])
+        del captured, spec_b, kw_b
+        detection = detection_profile(wavs)
 
         # a backlog of three batches through the pipelined stream
         timer = StageTimer()
@@ -1182,6 +1415,36 @@ def main():
         for g, c in zip(batch_runs["cold"], cpu_batch):
             worst = max(worst, compare_results(g["analysis"], c["analysis"], confidence_tol=2))
         log(json.dumps({"fast_card_vs_cpu": len(cpu_batch), "max_confidence_diff": worst}))
+
+        # the fast batch with a band-pass bird model and the pre-model
+        bp_models = [write_tuinet_model(tmp / "bandpass-bird", seed=0, net_dtype=None,
+                                        name="bandpass-bird", filter_below=9000,
+                                        threshold=BANDPASS_FAST_THRESHOLD), models[1]]
+        bp_batch = {}
+        for tag in ("cold", "warm"):
+            timer, stacks = StageTimer(), []
+            with capture_sosfilt(stacks):
+                res, wall, bp_batch_launches = run_batch_cli(wavs, bp_models, "cuda", timer)
+            bp_batch[tag] = res
+            log(json.dumps({"batch_run": f"band-pass {tag}", "device": "cuda",
+                            "recordings": len(res), "wall_s": wall,
+                            "audio_s_per_s": len(res) * SECONDS / wall,
+                            "launches": bp_batch_launches, "timing": timer.as_dict(),
+                            "labels": count_labels([r["analysis"] for r in res]),
+                            **(sosfilt_timing(stacks) if stacks else {})}))
+            require_launches(f"band-pass batch {tag} run", bp_batch_launches, fast_path)
+            if not stacks:
+                raise AssertionError("the band-pass batch filtered no track")
+        if without_times(bp_batch["warm"]) != without_times(bp_batch["cold"]):
+            raise AssertionError("the warm band-pass batch differs from the cold batch")
+        cpu_bp, wall, _ = run_batch_cli(wavs[:2], bp_models, "cpu")
+        worst = 0
+        for g, c in zip(bp_batch["cold"], cpu_bp):
+            worst = max(worst, compare_results(g["analysis"], c["analysis"], confidence_tol=2))
+        log(json.dumps({"bandpass_fast_card_vs_cpu": len(cpu_bp), "cpu_wall_s": wall,
+                        "max_confidence_diff": worst}))
+        if not count_labels([r["analysis"] for r in bp_batch["cold"]]):
+            raise AssertionError("the band-pass batch labels no track")
         os.environ.pop("AAT_FAST")
 
         # EfficientNetB0 (the reference's flagship classifier), read from
@@ -1236,8 +1499,11 @@ def main():
             require_launches(f"efficientnet batch {tag} run", eff_batch_launches, fast_path)
         if without_times(eff_batch["warm"]) != without_times(eff_batch["cold"]):
             raise AssertionError("the warm EfficientNet batch differs from the cold batch")
-        log(json.dumps({"profile": "efficientnet batch warm", "device": "cuda",
-                        **profile_device(lambda: run_batch_cli(wavs, [effnet_fast], "cuda"))}))
+        eff_prof = profile_device(lambda: run_batch_cli(wavs, [effnet_fast], "cuda"))
+        log(json.dumps({"profile": "efficientnet batch warm", "device": "cuda", **eff_prof}))
+        if eff_prof["max_pool_kernels"]:  # EfficientNetB0 has no max-pool; detection none
+            raise AssertionError(f"the EfficientNet batch launched "
+                                 f"{eff_prof['max_pool_kernels']} max-pool kernels")
         cpu_batch, wall, cpu_launches = run_batch_cli(wavs[:2], [effnet_fast], "cpu")
         log(json.dumps({"batch_run": "efficientnet cpu", "device": "cpu",
                         "recordings": len(cpu_batch), "wall_s": wall,
@@ -1253,6 +1519,17 @@ def main():
                         "max_confidence_diff": worst}))
         os.environ.pop("AAT_FAST")
 
+        # the legacy cacophony index at 48 and at 44.1 kHz (resampled to 16 kHz)
+        for rate, w in ((SR, wav), (44100, rate_wavs[44100])):
+            t0 = time.perf_counter()
+            card = run_old_index(w, "cuda")
+            card_s = time.perf_counter() - t0
+            cpu = run_old_index(w, "cpu")
+            log(json.dumps({"old_index": rate, "wall_s": card_s, "entries":
+                            card["cacophony_index_old"], "card_equals_cpu": card == cpu}))
+            if card != cpu or not card["cacophony_index_old"]:
+                raise AssertionError(f"old index at {rate} Hz: card {card} vs CPU {cpu}")
+
     out = []
     for name, m in kernels.items():
         base = name.split("[")[0]
@@ -1265,7 +1542,10 @@ def main():
                                  "batch_fast": batch_launches[base],
                                  "backlog_fast": backlog_launches[base],
                                  "analyse_exact_efficientnet": eff_launches[base],
-                                 "batch_fast_efficientnet": eff_batch_launches[base]}} | {
+                                 "batch_fast_efficientnet": eff_batch_launches[base],
+                                 "analyse_exact_44k1": launches44[base],
+                                 "analyse_exact_bandpass": bp_launches[base],
+                                 "batch_fast_bandpass": bp_batch_launches[base]}} | {
             k: m.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "max_rel", "shape")})
         if base in DIRECT:  # the float64 DFTs: which route, and the direct route's count
@@ -1280,6 +1560,10 @@ def main():
         "f32_card_vs_cpu_max_abs", "bf16_vs_f32_max_abs", "bf16_vs_f32_mean_abs")} | {
         k: {q: effnet_model[k][q] for q in ("ms", "windows_per_s", "host_share", "idle_share")}
         for k in ("float32", "bfloat16")}}))
+    log(json.dumps({"packed_morphology": {path: {k: m[k] for k in (
+        "shape", "ms", "plain_ms", "host_enqueue_ms", "device_kernels")}
+        for path, m in morphology.items()},
+        "detection_max_pool_kernels": detection["max_pool_kernels"]}))
     log(json.dumps({"kernels": out}))
     log(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

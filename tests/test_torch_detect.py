@@ -88,10 +88,12 @@ def test_threshold_morph_matches_jax_packed_mask(rng):
     packed = np.asarray(jsn._mask_threshold_morph(
         jnp.asarray(spec), row_m, col_m, jnp.asarray(col_valid), **kw))
     ref = np.unpackbits(packed.astype(">i4").view(np.uint8), axis=1)[:, :t].astype(bool)
-    got = tsn._mask_threshold_morph(
+    words = tsn._mask_threshold_morph(
         torch.from_numpy(spec)[None], torch.from_numpy(np.array(row_m))[None],
         torch.from_numpy(np.array(col_m))[None], torch.from_numpy(col_valid)[None], **kw,
     )[0].numpy()
+    np.testing.assert_array_equal(words, packed)
+    got = np.unpackbits(words.astype(">i4").view(np.uint8), axis=1)[:, :t].astype(bool)
     assert ref[40:60, 100:160].any()
     np.testing.assert_array_equal(got, ref)
 
