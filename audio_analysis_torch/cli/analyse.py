@@ -101,9 +101,10 @@ def run(argv=None):
 
         summary = calculate(args.file, device=args.device)
     elif args.morepork_model:
-        raise NotImplementedError(
-            "--morepork-model is not ported yet (ROADMAP Queue 1, item 10)"
-        )
+        from audio_analysis_torch.pipeline.morepork import identify_morepork
+
+        summary = {"morepork": identify_morepork(args.file, args.morepork_model,
+                                                 device=args.device)}
     else:
         from audio_analysis_torch.pipeline.analysis import examine
         import numpy as np

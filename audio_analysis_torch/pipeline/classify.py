@@ -16,6 +16,10 @@ track's samples are cut out, stacked [n_filtered, max_len] on the device
 and filtered by ``ops/filters.py::sosfilt_array`` with one Butterworth
 filter a row, and the track's windows in the grid are gathered again from
 its filtered samples (``filter_windows``).
+
+An embeddings group (``"name": "embeddings"``) plans no windows: its models
+classify the embeddings of each track's 5 s windows of the raw PCM
+(``run_embeddings_group``, pipeline/embeddings.py).
 """
 
 import logging
@@ -37,6 +41,7 @@ from audio_analysis_torch.io.audio import load_recording
 from audio_analysis_torch.io.modelconfig import ModelConfig
 from audio_analysis_torch.models.registry import load_classifier
 from audio_analysis_torch.ops.filters import butter_bandpass_sos, sosfilt_array
+from audio_analysis_torch.pipeline.embeddings import chirp_embeddings, load_embedder
 from audio_analysis_torch.pipeline.frontend import frontend_level, spectrogram_grid
 from audio_analysis_torch.pipeline.samples import (
     gather_windows,
@@ -190,6 +195,22 @@ def run_group(models, feat_cfg, frames_flat, padded_plan, n_tracks, is_efficient
     return _track_means(probs, padded_plan.track_index, n_tracks), feats
 
 
+def run_embeddings_group(models, cfg: ModelConfig, embedder, frames, sr, tracks):
+    """One embeddings group over one recording's tracks (the JAX package's
+    embeddings branch): every window's embedding from the PCM `frames` [T]
+    (never band-passed), every model over the embeddings, the ensemble
+    mean, the per-track means, then the thresholds."""
+    embs, counts = chirp_embeddings(frames, sr, tracks, cfg.segment_stride, embedder)
+    probs = None
+    for model in models:
+        p = model(embs)
+        probs = p if probs is None else probs + p
+    probs = probs / len(models)
+    seg = np.repeat(np.arange(len(tracks)), counts)
+    track_probs = _track_means(probs, seg, len(tracks)).cpu().numpy()
+    apply_thresholds(tracks, track_probs, np.asarray(counts), cfg)
+
+
 def classify(file, models, analyse_tracks, meta_data=None, rng=np.random, timer=None,
              device=None):
     """Reference-compatible entry: returns
@@ -262,9 +283,14 @@ def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.r
         bird_labels.update(cfg.bird_labels)
 
         if cfg.name == "embeddings":
-            raise NotImplementedError(
-                "embeddings model groups are not ported yet (ROADMAP Queue 1, item 10)"
-            )
+            # embedding vectors per track window, classified by the group's
+            # models (reference src/identify_tracks.py:498-499, 536-551);
+            # no window plan: a later spectral group plans its own
+            with timer.stage("infer"):
+                embedder = load_embedder(cfg.raw.get("embedding_model"), dev)
+                run_embeddings_group([m for m, _ in predict_models], cfg, embedder,
+                                     frames_dev, sr, tracks)
+            continue
 
         if track_data is None:
             plan = plan_for_config(frames_dev.shape[-1], sr, tracks, cfg, rng=rng)

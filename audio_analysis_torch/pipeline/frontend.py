@@ -2,19 +2,24 @@
 (src/identify_tracks.py:212-288) over the whole window grid (the JAX
 package's pipeline/frontend.py::spectrogram_grid).
 
-Normalise -> framed DFT -> mel -> dB -> mean-sub -> channels. The DFT -> mel
-runs at one of two levels (``frontend_level``): ``exact``, the float64
+Normalise -> framed DFT -> mel -> dB (-> the mfcc rows) -> mean-sub ->
+channels. The DFT -> mel runs at one of two levels (``frontend_level``): ``exact``, the float64
 ``stft_mel`` kernel, or ``fast``, the bf16 tensor-core ``stft_mel_bf16``
 kernel (the AAT_FAST throughput preset; its dif route for n_fft % 8 == 0).
 """
 
 import logging
+import math
 import os
 
 import torch
 
+from audio_analysis_torch.models.layers import resize_with_pad
+from audio_analysis_torch.ops.dct import dct2
+from audio_analysis_torch.ops.mel import filterbank_np
 from audio_analysis_torch.ops.melspec import stft_mel, stft_mel_bf16
 from audio_analysis_torch.ops.scale import normalize_minmax, power_to_db
+from audio_analysis_torch.ops.stft import stft_magnitude
 from audio_analysis_torch.utils.runtime import fast_mode
 
 EXACT, FAST = "exact", "fast"
@@ -88,10 +93,6 @@ def spectrogram_grid(
     (src/identify_tracks.py:260-261) and per-window power_to_db(ref=max).
     ``level`` is ``exact`` or ``fast``; None resolves it now
     (``frontend_level``)."""
-    if use_mfcc:
-        raise NotImplementedError(
-            "the mfcc frontend is not ported yet (ROADMAP Queue 1, item 10)"
-        )
     mel_of = dft_mel(frontend_level() if level is None else level)
     if normalize:
         windows = normalize_minmax(windows)
@@ -112,8 +113,36 @@ def spectrogram_grid(
     if db_scale:
         mel = power_to_db(mel, ref_axes=(-2, -1))
     mel = mel[..., None]  # channel dim
+    if use_mfcc:
+        # the reference concatenates a resized MFCC under the mel
+        # (src/identify_tracks.py:269-280); its own call passes a 2-D array
+        # to tf.image.resize_with_pad and would fail, so this is the JAX
+        # package's reading of its intent: the MFCC resized to the mel's
+        # [n_mels, T], then stacked on the mel axis
+        mfcc = _mfcc(windows, sr, hop_length)
+        mfcc = resize_with_pad(mfcc[..., None], mel.shape[-3], mel.shape[-2])
+        mel = torch.cat((mel, mfcc), dim=-3)
     if mean_sub:
         mel = mel - mel.mean(dim=-2, keepdim=True)
     if channels > 1:
         mel = mel.repeat_interleave(channels, dim=-1)
     return mel
+
+
+def _mfcc(windows, sr, hop_length, n_mfcc=20, n_mels=80):
+    """librosa.feature.mfcc(htk=True, fmin=50, fmax=11000, n_mels=80) of the
+    normalised windows: |STFT|^2 at n_fft 2048 in float32 (XLA's rfft in the
+    JAX package) -> htk mel (break 700) -> power_to_db(ref=1) with an 80 dB
+    floor per window -> ortho DCT-II over the mel axis, the first 20
+    coefficients: [N, 20, frames]."""
+    mag = stft_magnitude(windows, 2048, hop_length)
+    fb = torch.from_numpy(filterbank_np(sr, n_mels, 50.0, 11000.0, 2048, 700.0, True))
+    mel = torch.einsum("mf,nft->nmt", fb.to(windows.device), mag * mag)
+    log_spec = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
+    peak = log_spec.amax(dim=(-2, -1), keepdim=True)
+    log_spec = torch.maximum(log_spec, peak - 80.0)
+    d = dct2(log_spec.transpose(-1, -2))  # [..., frames, n_mels]
+    n = d.shape[-1]
+    scale = torch.full((n,), math.sqrt(1.0 / (2.0 * n)), device=d.device)
+    scale[0] /= math.sqrt(2.0)
+    return (d * scale).transpose(-1, -2)[..., :n_mfcc, :]

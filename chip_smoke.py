@@ -87,9 +87,24 @@
    the TuiNet paths, and the batch's profile may hold no max-pool kernel;
 8. ``analyse --old-cacophony-index`` on the 48 kHz and the 44.1 kHz WAV,
    the card's table equal to the CPU's;
-9. prints one JSON line of the EfficientNetB0 numbers, one of the packed
-   morphology's, one describing every kernel, the card's name and power
-   limit, then the last line ``{"ok": true, "device": {...}}``.
+9. the side paths (``check_morepork``, ``check_embeddings``,
+   ``check_mfcc``), each card run against a CPU run with every kernel
+   count reset around it: ``analyse --morepork-model`` with a three-member
+   ensemble of seeded CNNs laid out as converted SavedModels, at 48 and
+   44.1 kHz (cold, warm, CPU; spans identical and not empty; no kernel of
+   the repo launched), with the |STFT|'s, the samples' and each member's
+   ms and one profiled run; the exact analyse CLI with an embeddings group
+   (a seeded Conv1D embedder, 5 s at 32 kHz in, a 1,280-wide embedding
+   out, and a Dense head) and a full-width TuiNet pre-model group, with the
+   resample's, the window gather's and the embedder's ms; the AAT_FAST=1
+   batch with the embeddings group and the bfloat16 pre-model, and with the
+   embeddings group alone; a full-width TuiNet with ``use_mfcc`` on the
+   exact CLI and the fast batch, and the frontend's ms over [64, 144000]
+   with mfcc off and on at both levels;
+10. prints one JSON line of the EfficientNetB0 numbers, one of the packed
+   morphology's, one of the side paths', one describing every kernel, the
+   card's name and power limit, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
 line; without a CUDA device it exits non-zero at once.
@@ -137,6 +152,13 @@ EFFNET_F32_TOL = 1e-4  # card float32 vs CPU float32, max abs of the probabiliti
 # network's probabilities by up to 0.112 (mean 0.0063) in the JAX package's
 # own bfloat16 mode (CPU, 30 windows; tests/test_torch_keras_graph.py)
 EFFNET_BF16_MAX, EFFNET_BF16_MEAN = 0.15, 0.02
+MOREPORK_ZERO = REPO / "audio_analysis_torch" / "data" / "morepork_cnn_60x60_zero.keras"
+MOREPORK_MEMBERS = 3
+EMBEDDER_ZERO = REPO / "audio_analysis_torch" / "data" / "embedder_conv1d_160000_zero.keras"
+EMBED_SR = 32000
+EMBED_DIM = 1280
+EMBED_LABELS = ["bird", "kiwi", "morepork", "tui", "noise", "human"]
+EMBED_THRESHOLD = 0.295
 RESAMPLE_RATES = (44100, 32000, 96000)  # the recordings written at other rates
 RESAMPLE_TOL = 1e-5  # card vs CPU, max abs of the 48 kHz PCM
 # band-pass models: at the exact level (float32) above 1/8, the mean of 8
@@ -231,35 +253,29 @@ def write_tuinet_model(model_dir, seed=0, channels=(64, 128, 256), stem=32, dens
     return model_dir
 
 
-def efficientnet_fixture(model_dir, seed=0, threshold=EFFNET_THRESHOLD, name="efficientnet-b0",
-                         labels=EFFNET_LABELS, **meta_overrides):
-    """A full-width EfficientNetB0 model dir over [160, 226, 3] mel windows
-    (bench.py's fixture) without TensorFlow: the committed archive's weights
-    (all zero) are overwritten in place, at each dataset's offset in the
-    HDF5 bytes that io/h5read.py reports, with weights drawn from a numpy
-    seed: conv and dense kernels He-normal over their fan-in, biases 0,
-    BatchNorm gamma ~1 and beta ~0 (perturbed), Normalization mean 0 and
-    variance 1 (it divides with no epsilon). BatchNorm's moving mean and
-    variance are then set to the statistics its input has on 15 windows of
-    a seeded recording (``bn_batch_stats``), as training would leave them:
-    with mean 0 and variance 1 instead, the input's part of the signal
-    decays through the 16 blocks and every window gets the same
-    probabilities. Writes audioModel.keras and metadata.txt (bench.py's
-    frontend; the name holds "efficientnet", so the 3-channel repeat
-    applies)."""
+def seeded_keras_archive(zero_archive, archive, seed, calibrate=None):
+    """Write `archive`: the committed zero-weight `zero_archive` with its
+    weights overwritten in place, at each dataset's offset in the HDF5
+    bytes that io/h5read.py reports, by weights drawn from a numpy seed:
+    conv and dense kernels He-normal over their fan-in, biases 0,
+    BatchNorm gamma ~1 and beta ~0 (perturbed), its moving mean 0 and
+    variance 1, Normalization mean 0 and variance 1 (it divides with no
+    epsilon). Then ``calibrate(config, weights)``, given the seeded
+    archive, returns {weight key: {variable index: array}} to overwrite
+    (BatchNorm's moving statistics, ``bn_batch_stats``; an output bias).
+    Needs no TensorFlow. Returns `archive`."""
     import zipfile
 
     from audio_analysis_torch.io.h5read import read_h5
     from audio_analysis_torch.io.keras_import import read_keras_archive
 
-    model_dir = Path(model_dir)
-    model_dir.mkdir(parents=True, exist_ok=True)
-    archive = model_dir / "audioModel.keras"
-    with zipfile.ZipFile(EFFNET_ZERO) as z:
+    archive = Path(archive)
+    archive.parent.mkdir(parents=True, exist_ok=True)
+    with zipfile.ZipFile(zero_archive) as z:
         files = {n: z.read(n) for n in z.namelist()}
     h5 = bytearray(files["model.weights.h5"])
     rng = np.random.RandomState(seed)
-    moving = {}  # BatchNorm weight key -> offsets of its moving mean and variance
+    datasets = {}  # weight key -> {variable index: dataset}
 
     def put(item, new):
         raw = np.ascontiguousarray(new, dtype=item.array.dtype).tobytes()
@@ -274,14 +290,13 @@ def efficientnet_fixture(model_dir, seed=0, threshold=EFFNET_THRESHOLD, name="ef
             if item.offset is None or path[-1:] != ("vars",):
                 continue
             layer, i, shape = path[-2].rstrip("0123456789").rstrip("_"), int(key), item.array.shape
+            datasets.setdefault("/".join(path[1:-1]), {})[i] = item
             if layer == "normalization":  # mean, variance, count
                 put(item, np.full(shape, (0, 1, 0)[i]))
             elif layer == "batch_normalization":  # gamma, beta, moving mean, variance
-                if i < 2:
-                    put(item, (1.0, 0.0)[i] + 0.1 * rng.randn(*shape))
-                else:
-                    moving.setdefault("/".join(path[1:-1]), [None, None])[i - 2] = item
-            elif len(shape) >= 2:  # conv (HWIO), depthwise (h, w, C, 1), dense ([in, out])
+                put(item, (1.0, 0.0)[i] + 0.1 * rng.randn(*shape) if i < 2
+                    else np.full(shape, (0.0, 1.0)[i - 2]))
+            elif len(shape) >= 2:  # conv (HWIO, WIO), depthwise (h, w, C, 1), dense ([in, out])
                 fan_in = int(np.prod(shape[:-2])) * (1 if "depthwise" in layer else shape[-2])
                 put(item, rng.randn(*shape) * np.sqrt(2.0 / fan_in))
             else:  # biases
@@ -295,11 +310,31 @@ def efficientnet_fixture(model_dir, seed=0, threshold=EFFNET_THRESHOLD, name="ef
 
     fill(read_h5(bytes(h5)), ())
     write()
-    config, weights, _ = read_keras_archive(archive)
-    for key, (mean, var) in bn_batch_stats(config, weights, calibration_grid(seed)).items():
-        put(moving[key][0], mean)
-        put(moving[key][1], var)
-    write()
+    if calibrate is not None:
+        config, weights, _ = read_keras_archive(archive)
+        for key, new in calibrate(config, weights).items():
+            for i, a in new.items():
+                put(datasets[key][i], a)
+        write()
+    return archive
+
+
+def efficientnet_fixture(model_dir, seed=0, threshold=EFFNET_THRESHOLD, name="efficientnet-b0",
+                         labels=EFFNET_LABELS, **meta_overrides):
+    """A full-width EfficientNetB0 model dir over [160, 226, 3] mel windows
+    (bench.py's fixture) without TensorFlow: the committed zero-weight
+    archive seeded in place (``seeded_keras_archive``), BatchNorm's moving
+    mean and variance then set to the statistics its input has on 15
+    windows of a seeded recording (``bn_batch_stats``), as training would
+    leave them: with mean 0 and variance 1 instead, the input's part of the
+    signal decays through the 16 blocks and every window gets the same
+    probabilities. Writes audioModel.keras and metadata.txt (bench.py's
+    frontend; the name holds "efficientnet", so the 3-channel repeat
+    applies)."""
+    model_dir = Path(model_dir)
+    seeded_keras_archive(EFFNET_ZERO, model_dir / "audioModel.keras", seed,
+                         lambda config, weights: bn_batch_stats(config, weights,
+                                                                calibration_grid(seed)))
     meta = {
         "name": name, "labels": list(labels), "segment_length": 3, "segment_stride": 1.5,
         "hop_length": 640, "n_mels": 160, "break_freq": 1750, "htk": True, "fmin": 50,
@@ -308,6 +343,87 @@ def efficientnet_fixture(model_dir, seed=0, threshold=EFFNET_THRESHOLD, name="ef
     }
     meta.update(meta_overrides)
     meta = {k: v for k, v in meta.items() if v is not None}
+    (model_dir / "metadata.txt").write_text(json.dumps(meta, indent=4, sort_keys=True))
+    return model_dir
+
+
+def morepork_ensemble(model_dir, seed=0, members=MOREPORK_MEMBERS):
+    """A morepork ensemble of `members` seeded CNNs over [60, 60, 1] samples
+    (the committed zero-weight archive: three conv blocks of 32/64/128
+    filters with max-pools, Dense(128), Dense(1, sigmoid)), each laid out
+    as the JAX package serves a converted SavedModel: ``member<i>/`` holds
+    a placeholder saved_model.pb and ``.aat_native/`` the converted
+    audioModel.keras, metadata.txt and a .stamp of saved_model.pb's
+    st_mtime_ns. Member i is seeded with seed + i; its output bias then
+    puts its median activation on the samples of a seeded recording at
+    1/members, so the ensemble's sum crosses the 1.0 threshold there about
+    half the time (one sigmoid alone never reaches it; tests/test_morepork.py
+    biases its members for the same reason). Returns the ensemble dir."""
+    import torch
+
+    from audio_analysis_torch.models.keras_graph import KerasModel, _layer_name
+    from audio_analysis_torch.pipeline import morepork as mp
+
+    y = torch.from_numpy(make_recording(seconds=20, silent_from=20.0, seed=2000 + seed))
+    spec = mp._spectrogram_program(y, sr=SR)
+    lows, lengths, _ = mp._sample_grid(int(spec.shape[1]))
+    samples = mp._samples_program(spec, torch.from_numpy(lows), torch.from_numpy(lengths))
+
+    def output_bias(config, weights):
+        net = KerasModel(config, weights)
+        with torch.inference_mode():
+            p = net(samples).double().numpy().ravel()
+        logit = float(np.median(np.log(p / (1.0 - p))))
+        target = -np.log(members - 1.0)  # the logit of 1/members
+        return {net._h5key[_layer_name(net._layers[-1])]: {1: [target - logit]}}
+
+    model_dir = Path(model_dir)
+    for i in range(members):
+        member = model_dir / f"member{i}"
+        member.mkdir(parents=True, exist_ok=True)
+        pb = member / "saved_model.pb"
+        pb.write_bytes(b"")
+        native = member / ".aat_native"
+        seeded_keras_archive(MOREPORK_ZERO, native / "audioModel.keras", seed + i, output_bias)
+        (native / "metadata.txt").write_text(json.dumps({"name": f"morepork{i}",
+                                                         "labels": ["morepork"]}))
+        (native / ".stamp").write_text(str(pb.stat().st_mtime_ns))
+    return model_dir
+
+
+def embedder_fixture(path, seed=0):
+    """The embeddings groups' embedder, Perch's interface: [160000] float32
+    windows (5 s at 32 kHz) in, 64 logits and a 1,280-wide embedding out
+    (the committed zero-weight archive: Reshape to [500, 320], three
+    Conv1D/BatchNorm/ReLU blocks of 128/256/256 channels with two
+    max-pools, global average pooling, Dense(1280), Dense(64)), seeded in
+    place, its BatchNorm moving statistics those of 8 windows of a seeded
+    32 kHz recording (``bn_batch_stats``). Returns the archive's path."""
+    import torch
+
+    y = make_recording(seconds=40, silent_from=40.0, seed=3000 + seed, sr=EMBED_SR)
+    windows = torch.from_numpy(y.reshape(8, 5 * EMBED_SR))
+    return seeded_keras_archive(EMBEDDER_ZERO, path, seed,
+                                lambda config, weights: bn_batch_stats(config, weights, windows))
+
+
+def embeddings_head(model_dir, embedding_model, seed=0, labels=EMBED_LABELS,
+                    **meta_overrides):
+    """An embeddings group's model: a Dense softmax head over the 1,280-wide
+    embedding (``"architecture": "dense"``, weights drawn from a numpy
+    seed), ``"name": "embeddings"``, its embedder at `embedding_model`,
+    5 s windows every 5 s. ``meta_overrides`` update the metadata."""
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    np.savez(model_dir / "weights.npz",
+             **{"0/kernel": (rng.randn(EMBED_DIM, len(labels)) * np.sqrt(2.0 / EMBED_DIM))
+                .astype(np.float32),
+                "0/bias": (0.01 * rng.randn(len(labels))).astype(np.float32)})
+    meta = {"architecture": "dense", "name": "embeddings", "labels": list(labels),
+            "embedding_model": str(embedding_model), "segment_stride": 5,
+            "threshold": EMBED_THRESHOLD}
+    meta.update(meta_overrides)
     (model_dir / "metadata.txt").write_text(json.dumps(meta, indent=4, sort_keys=True))
     return model_dir
 
@@ -330,11 +446,12 @@ def calibration_grid(seed):
 
 
 def bn_batch_stats(config, weights, x):
-    """{weight key: (mean, variance)} of every BatchNormalization layer's
-    input in one forward over `x` in which each BatchNormalization
-    normalises with its own input's per-channel statistics (training-mode
-    batch norm, biased variance), so each layer sees the inputs the
-    calibrated layers before it give."""
+    """{weight key: {2: mean, 3: variance}}, BatchNormalization's moving
+    statistics set to those of its input in one forward over `x` in which
+    each BatchNormalization normalises with its own input's per-channel
+    statistics (training-mode batch norm, biased variance, over every axis
+    but the last), so each layer sees the inputs the calibrated layers
+    before it give."""
     import torch
 
     from audio_analysis_torch.models.keras_graph import KerasModel, _layer_name
@@ -351,8 +468,9 @@ def bn_batch_stats(config, weights, x):
 
             def bn(args, kwargs):
                 x = args[0]
-                mean, var = x.mean(dim=(0, 1, 2)), x.var(dim=(0, 1, 2), unbiased=False)
-                stats[key] = (mean.numpy(), var.numpy())
+                dims = tuple(range(x.dim() - 1))
+                mean, var = x.mean(dim=dims), x.var(dim=dims, unbiased=False)
+                stats[key] = {2: mean.numpy(), 3: var.numpy()}
                 return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
 
             return bn
@@ -841,18 +959,22 @@ def require_launches(tag, launches, expect):
         raise AssertionError(f"{tag}: launches {launches}, expected {expect}")
 
 
-def run_cli(wav, model_dir, device):
-    """One CLI run in this process; returns (result JSON, wall seconds,
+def run_cli(wav, models, device, flag="--bird-model"):
+    """One CLI run in this process, ``flag`` given once per model dir in
+    `models` (one dir or a list); returns (result JSON, wall seconds,
     launches per kernel)."""
     import torch
 
     from audio_analysis_torch.cli.analyse import run
 
+    argv = ["-o", str(wav), "--seed", "0", "--device", device]
+    for m in models if isinstance(models, list) else [models]:
+        argv += [flag, str(m)]
     reset_counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        run(["-o", str(wav), "--bird-model", str(model_dir), "--seed", "0", "--device", device])
+        run(argv)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -928,10 +1050,11 @@ def profile_device(fn):
     )
 
 
-def count_labels(results):
-    """Predictions above threshold over result JSONs."""
+def count_labels(results, model=None):
+    """Predictions above threshold over result JSONs (of `model`'s results
+    alone, when given)."""
     return sum(len(r["predictions"]) for res in results for t in res["species_identify"]
-               for r in t.get("model_results", []))
+               for r in t.get("model_results", []) if model in (None, r["model"]))
 
 
 def effnet_grid(pcm, n=EFFNET_WINDOWS):
@@ -1212,6 +1335,243 @@ def check_golden(device):
         if got[k] != ref[k]:
             raise AssertionError(f"golden {k}: {got[k]} vs {ref[k]}")
     compare_results(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the side paths: the morepork detector, embeddings groups, the mfcc frontend
+# ---------------------------------------------------------------------------
+
+
+def check_morepork(tmp, wav_by_rate, device="cuda"):
+    """``analyse --morepork-model`` with a three-member ensemble
+    (``morepork_ensemble``) on the 60 s fixture at each rate of
+    `wav_by_rate`: cold and warm on `device` and once on the CPU, the spans
+    and likelihoods identical, at least one span, no kernel of the repo
+    launched (the |STFT| is ``torch.fft``, as the JAX package's is XLA's
+    rfft); then on `device` the |STFT|'s and the samples' ms, each member's
+    ms over the samples (CUDA events) and one warm run profiled. Returns
+    the measurements and the launches."""
+    import torch
+
+    from audio_analysis_torch.io.audio import load_audio_mono
+    from audio_analysis_torch.pipeline import morepork as mp
+
+    t0 = time.perf_counter()
+    ensemble = morepork_ensemble(tmp / "morepork")
+    m = {"fixture_s": time.perf_counter() - t0, "spans": {}}
+    none = {k: 0 for k in counters()}
+
+    def run(wav, dev):
+        res, wall, launches = run_cli(wav, ensemble, dev, flag="--morepork-model")
+        res.pop("processing_time_seconds")
+        return res, wall, launches
+
+    for rate, wav in wav_by_rate.items():
+        runs = {}
+        for tag, dev in (("cold", device), ("warm", device), ("cpu", "cpu")):
+            runs[tag], wall, launches = run(wav, dev)
+            log(json.dumps({"morepork_run": f"{rate} Hz {tag}", "device": dev, "wall_s": wall,
+                            "spans": len(runs[tag]["morepork"]), "launches": launches}))
+            require_launches(f"morepork {rate} Hz {tag}", launches, none)
+            if rate == SR and tag == "warm":
+                m["launches"] = launches
+        if not runs["cold"] == runs["warm"] == runs["cpu"]:
+            raise AssertionError(f"morepork at {rate} Hz: the card's spans differ from the "
+                                 f"CPU's: {runs['cold']} vs {runs['cpu']}")
+        spans = runs["cold"]["morepork"]
+        if not spans:
+            raise AssertionError(f"morepork at {rate} Hz: no span")
+        m["spans"][rate] = [[e["begin_s"], e["end_s"], e["predictions"][0]["likelihood"][0]]
+                            for e in spans]
+    dev = torch.device(device)
+    frames, sr = load_audio_mono(wav_by_rate[SR])
+    x = torch.from_numpy(frames).to(dev)
+    nets = [mp._load_morepork_model(p, dev) for p in mp.model_paths(str(ensemble))]
+    with torch.inference_mode():
+        spec = mp._spectrogram_program(x, sr=sr)
+        lows, lengths, _ = mp._sample_grid(int(spec.shape[1]))
+        lows, lengths = torch.from_numpy(lows).to(dev), torch.from_numpy(lengths).to(dev)
+        samples = mp._samples_program(spec, lows, lengths)
+        m["samples_shape"] = list(samples.shape)
+        m["stft_ms"] = time_ms(lambda: mp._spectrogram_program(x, sr=sr), 10)
+        m["samples_ms"] = time_ms(lambda: mp._samples_program(spec, lows, lengths), 10)
+        m["member_ms"] = [time_ms(lambda: net(samples), 10) for net in nets]
+    prof = profile_device(lambda: run(wav_by_rate[SR], device))
+    m["profile"] = {k: prof[k] for k in ("profiled_wall_ms", "device_busy_ms", "idle_share",
+                                         "device_kernels", "top")}
+    log(json.dumps({"morepork": m}))
+    return m
+
+
+@contextlib.contextmanager
+def capture_embeddings(captured):
+    """Within the block, record the arguments of the first embeddings group
+    call (the PCM, its rate, the tracks, the stride, the embedder) into
+    `captured["args"]`; the call still runs."""
+    from audio_analysis_torch.pipeline import classify
+
+    chirp = classify.chirp_embeddings
+
+    def recording(frames, sr, tracks, stride, embedder):
+        captured.setdefault("args", (frames.clone(), sr, list(tracks), stride, embedder))
+        return chirp(frames, sr, tracks, stride, embedder)
+
+    classify.chirp_embeddings = recording
+    try:
+        yield captured
+    finally:
+        classify.chirp_embeddings = chirp
+
+
+def embeddings_timing(frames, sr, tracks, stride, embedder):
+    """ms (CUDA events) of an embeddings group's steps on one recording's
+    captured arguments: the 48 -> 32 kHz resample, the window gather (host
+    starts included) and the embedder's forward over all the windows."""
+    import torch
+
+    from audio_analysis_torch.ops.resample import resample
+    from audio_analysis_torch.pipeline.classify import float_pcm
+    from audio_analysis_torch.pipeline.embeddings import EMBED_SR, get_chirp_samples
+
+    x = float_pcm(frames)
+    with torch.inference_mode():
+        rec = resample(x, sr, EMBED_SR)
+        windows, _ = get_chirp_samples(rec, tracks, stride=stride)
+        return {"tracks": len(tracks), "windows": list(windows.shape),
+                "resample_ms": time_ms(lambda: resample(x, sr, EMBED_SR), 5),
+                "gather_ms": time_ms(lambda: get_chirp_samples(rec, tracks, stride=stride), 5),
+                "embedder_ms": time_ms(lambda: embedder(windows), 5)}
+
+
+def check_embeddings(tmp, wav, wavs, pre_model, exact_path, fast_path, device="cuda"):
+    """Embeddings groups (``embedder_fixture``, ``embeddings_head``):
+    with a full-width float32 TuiNet as a second (pre-model) group, the
+    exact analyse CLI cold and warm on `device` and on the CPU (equal as
+    ``compare_results`` holds them, confidences within 1; embeddings labels
+    present), its embeddings steps timed (``embeddings_timing``); then
+    under AAT_FAST=1 the batch CLI on the eight WAVs with the batch's
+    bfloat16 `pre_model`, cold and warm, the first two on the CPU
+    (confidences within 2), and with the embeddings group alone (one
+    end-scan, no frontend). Returns the measurements and the launches."""
+    from audio_analysis_torch.utils.runtime import StageTimer
+
+    t0 = time.perf_counter()
+    head = embeddings_head(tmp / "embeddings",
+                           embedder_fixture(tmp / "embedder" / "audioModel.keras"))
+    tui_pre = write_tuinet_model(tmp / "tuinet-pre", name="tuinet-pre", pre_model=True)
+    m = {"fixture_s": time.perf_counter() - t0, "launches": {}}
+    runs, captured = {}, {}
+    for tag in ("cold", "warm"):
+        with capture_embeddings(captured) if tag == "cold" else contextlib.nullcontext():
+            runs[tag], wall, launches = run_cli(wav, [head, tui_pre], device)
+        log(json.dumps({"cli_run": f"embeddings {tag}", "device": device, "wall_s": wall,
+                        "launches": launches, "labels": count_labels([runs[tag]], "embeddings"),
+                        **summary_of(runs[tag])}))
+        require_launches(f"embeddings {tag} run", launches, exact_path)
+    m["launches"]["analyse_exact_embeddings"] = launches
+    if runs["warm"]["species_identify"] != runs["cold"]["species_identify"]:
+        raise AssertionError("the warm embeddings run differs from the cold run")
+    cpu, wall, _ = run_cli(wav, [head, tui_pre], "cpu")
+    worst = compare_results(runs["cold"], cpu, confidence_tol=1)
+    if not count_labels([cpu], "embeddings") or not count_labels([cpu], "tuinet-pre"):
+        raise AssertionError(f"the embeddings CLI run on the CPU labels too little: "
+                             f"{summary_of(cpu)}")
+    m["exact"] = {"cpu_wall_s": wall, "max_confidence_diff": worst,
+                  "labels": count_labels([cpu], "embeddings"),
+                  **embeddings_timing(*captured["args"])}
+    log(json.dumps({"embeddings_exact": m["exact"]}))
+
+    os.environ["AAT_FAST"] = "1"
+    for tag, group in (("batch_fast_embeddings", [head, pre_model]),
+                       ("batch_fast_embeddings_alone", [head])):
+        batch = {}
+        for run in ("cold", "warm"):
+            timer = StageTimer()
+            batch[run], wall, launches = run_batch_cli(wavs, group, device, timer)
+            log(json.dumps({"batch_run": f"{tag} {run}", "device": device,
+                            "recordings": len(batch[run]), "wall_s": wall,
+                            "audio_s_per_s": len(batch[run]) * SECONDS / wall,
+                            "launches": launches, "timing": timer.as_dict(),
+                            "labels": count_labels([r["analysis"] for r in batch[run]])}))
+            # alone: the end-scan's stft_mel_bf16 and no frontend
+            require_launches(f"{tag} {run} run", launches,
+                             fast_path if len(group) > 1 else {**fast_path, "stft_mel_bf16": 1})
+        m["launches"][tag] = launches
+        if without_times(batch["warm"]) != without_times(batch["cold"]):
+            raise AssertionError(f"{tag}: the warm batch differs from the cold batch")
+        cpu_batch, wall, _ = run_batch_cli(wavs[:2], group, "cpu")
+        worst = max(compare_results(g["analysis"], c["analysis"], confidence_tol=2)
+                    for g, c in zip(batch["cold"], cpu_batch))
+        if not count_labels([r["analysis"] for r in cpu_batch], "embeddings"):
+            raise AssertionError(f"{tag}: no embeddings label on the CPU")
+        m[tag] = {"cpu_wall_s": wall, "max_confidence_diff": worst}
+        log(json.dumps({f"{tag}_card_vs_cpu": len(cpu_batch), **m[tag]}))
+    os.environ.pop("AAT_FAST")
+    return m
+
+
+def check_mfcc(tmp, wav, wavs, pcm, exact_path, fast_path, device="cuda"):
+    """A full-width TuiNet with ``"use_mfcc": true``: the exact analyse CLI
+    cold and warm on `device` and on the CPU (confidences within 1, labels
+    present), the AAT_FAST=1 batch CLI on the eight WAVs (bfloat16 TuiNet)
+    cold and warm, the first two on the CPU (within 2); then the frontend's
+    ms (CUDA events) over [64, 144000] windows at both levels with mfcc off
+    and on. Returns the measurements and the launches."""
+    import torch
+
+    from audio_analysis_torch.pipeline.frontend import EXACT, FAST, spectrogram_grid
+    from audio_analysis_torch.utils.runtime import StageTimer
+
+    exact_model = write_tuinet_model(tmp / "tuinet-mfcc", name="tuinet-mfcc", use_mfcc=True)
+    fast_model = write_tuinet_model(tmp / "bird-mfcc", net_dtype=None, name="bird-mfcc",
+                                    use_mfcc=True)
+    m = {"launches": {}}
+    runs = {}
+    for tag in ("cold", "warm"):
+        runs[tag], wall, launches = run_cli(wav, exact_model, device)
+        log(json.dumps({"cli_run": f"mfcc {tag}", "device": device, "wall_s": wall,
+                        "launches": launches, "labels": count_labels([runs[tag]]),
+                        **summary_of(runs[tag])}))
+        require_launches(f"mfcc {tag} run", launches, exact_path)
+    m["launches"]["analyse_exact_mfcc"] = launches
+    if runs["warm"]["species_identify"] != runs["cold"]["species_identify"]:
+        raise AssertionError("the warm mfcc run differs from the cold run")
+    cpu, wall, _ = run_cli(wav, exact_model, "cpu")
+    if not count_labels([cpu]):
+        raise AssertionError("the mfcc CLI run on the CPU labels no track")
+    m["exact"] = {"cpu_wall_s": wall,
+                  "max_confidence_diff": compare_results(runs["cold"], cpu, confidence_tol=1)}
+
+    os.environ["AAT_FAST"] = "1"
+    batch = {}
+    for tag in ("cold", "warm"):
+        timer = StageTimer()
+        batch[tag], wall, launches = run_batch_cli(wavs, [fast_model], device, timer)
+        log(json.dumps({"batch_run": f"mfcc {tag}", "device": device,
+                        "recordings": len(batch[tag]), "wall_s": wall,
+                        "audio_s_per_s": len(batch[tag]) * SECONDS / wall,
+                        "launches": launches, "timing": timer.as_dict(),
+                        "labels": count_labels([r["analysis"] for r in batch[tag]])}))
+        require_launches(f"mfcc batch {tag} run", launches, fast_path)
+    m["launches"]["batch_fast_mfcc"] = launches
+    if without_times(batch["warm"]) != without_times(batch["cold"]):
+        raise AssertionError("the warm mfcc batch differs from the cold batch")
+    cpu_batch, wall, _ = run_batch_cli(wavs[:2], [fast_model], "cpu")
+    m["fast"] = {"cpu_wall_s": wall, "max_confidence_diff": max(
+        compare_results(g["analysis"], c["analysis"], confidence_tol=2)
+        for g, c in zip(batch["cold"], cpu_batch))}
+    os.environ.pop("AAT_FAST")
+
+    y = torch.from_numpy(pcm).to(torch.device(device))
+    bases = np.arange(64) * ((int(SILENT_FROM * SR) - 3 * SR) // 64)
+    windows = torch.stack([y[b : b + 3 * SR] for b in bases])
+    kw = dict(sr=SR, hop_length=640, n_fft=4096, n_mels=160, mel_break=1750.0, htk=True,
+              fmin=50, fmax=11000, power=2.0, db_scale=False, normalize=True)
+    m["frontend_ms"] = {f"{level} mfcc {'on' if mfcc else 'off'}": time_ms(
+        lambda: spectrogram_grid(windows, level=level, use_mfcc=mfcc, **kw), 5)
+        for level in (EXACT, FAST) for mfcc in (False, True)}
+    log(json.dumps({"mfcc": m}))
+    return m
 
 
 def main():
@@ -1530,6 +1890,14 @@ def main():
             if card != cpu or not card["cacophony_index_old"]:
                 raise AssertionError(f"old index at {rate} Hz: card {card} vs CPU {cpu}")
 
+        # the side paths: the morepork detector, embeddings groups, mfcc
+        side = {"morepork": check_morepork(tmp, {SR: wav, 44100: rate_wavs[44100]}),
+                "embeddings": check_embeddings(tmp, wav, wavs, models[1], exact_path,
+                                               fast_path),
+                "mfcc": check_mfcc(tmp, wav, wavs, pcm, exact_path, fast_path)}
+        side_launches = {"analyse_morepork": side["morepork"]["launches"],
+                         **side["embeddings"]["launches"], **side["mfcc"]["launches"]}
+
     out = []
     for name, m in kernels.items():
         base = name.split("[")[0]
@@ -1545,7 +1913,8 @@ def main():
                                  "batch_fast_efficientnet": eff_batch_launches[base],
                                  "analyse_exact_44k1": launches44[base],
                                  "analyse_exact_bandpass": bp_launches[base],
-                                 "batch_fast_bandpass": bp_batch_launches[base]}} | {
+                                 "batch_fast_bandpass": bp_batch_launches[base],
+                                 **{path: n[base] for path, n in side_launches.items()}}} | {
             k: m.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "max_rel", "shape")})
         if base in DIRECT:  # the float64 DFTs: which route, and the direct route's count
@@ -1564,6 +1933,13 @@ def main():
         "shape", "ms", "plain_ms", "host_enqueue_ms", "device_kernels")}
         for path, m in morphology.items()},
         "detection_max_pool_kernels": detection["max_pool_kernels"]}))
+    log(json.dumps({"side_paths": {
+        "morepork": {k: side["morepork"][k] for k in ("stft_ms", "samples_ms", "member_ms")} | {
+            k: side["morepork"]["profile"][k] for k in ("device_busy_ms", "idle_share",
+                                                        "device_kernels")},
+        "embeddings": {k: side["embeddings"]["exact"][k] for k in (
+            "windows", "resample_ms", "gather_ms", "embedder_ms")},
+        "mfcc_frontend_ms": side["mfcc"]["frontend_ms"]}}))
     log(json.dumps({"kernels": out}))
     log(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -244,8 +244,9 @@ def test_sidecar_without_tracks_raises_on_both_paths(model_dir, analyzer):
 @pytest.mark.parametrize("part", ["mesh", "band-pass", "embeddings"])
 def test_unported_parts_raise(tmp_path, model_dir, part):
     """The parts still to port raise, naming their ROADMAP item; band-pass
-    plans (item 9) are ported now and give the single path's result
-    (tests/test_torch_bandpass.py holds them to the JAX package)."""
+    plans (item 9) and embeddings groups (item 10) are ported now and give
+    the single path's result (tests/test_torch_bandpass.py and
+    tests/test_torch_embeddings.py hold them to the JAX package)."""
     if part == "mesh":
         with pytest.raises(NotImplementedError, match="item 12"):
             BatchAnalyzer([model_dir], mesh=object(), device="cpu")
@@ -256,8 +257,12 @@ def test_unported_parts_raise(tmp_path, model_dir, part):
         assert got["species_identify"]
         _same(got, _single_pipeline_result(_rec(30), d))
     else:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            BatchAnalyzer([_model(tmp_path / "emb", name="embeddings")], device="cpu")
+        d = str(chip_smoke.embeddings_head(
+            tmp_path / "emb", chip_smoke.embedder_fixture(tmp_path / "embedder.keras")))
+        a = BatchAnalyzer([d], sr=SR, bucket_seconds=9, rng=None, device="cpu")
+        (got,) = a.analyse_recordings([_rec(30)])
+        assert got["species_identify"]
+        _same(got, _single_pipeline_result(_rec(30), d))
 
 
 def test_batch_needs_cuda_unless_cpu_is_asked_for(model_dir):
