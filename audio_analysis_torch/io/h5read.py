@@ -11,8 +11,10 @@ Keras saves weights through h5py with its default, earliest file format:
   datatype, and contiguous (or compact) storage.
 
 ``read_h5`` returns the tree as nested dicts, group name -> dict or
-``Dataset(array, offset)``, where ``offset`` is the byte offset of the
-dataset's raw data in the file (None for an empty dataset). Everything else
+``Dataset(array, offset, header)``, where ``offset`` is the byte offset of
+the dataset's raw data in the file (None for an empty dataset) and
+``header`` the address of its object header; ``object_messages`` and
+``superblock`` give the positions io/keras_export.py rewrites in place. Everything else
 raises ``ValueError`` naming the HDF5 feature: chunked or filtered storage,
 superblocks 2 and 3, version-2 object headers, link-message groups,
 big-endian data, and string, variable-length or compound types.
@@ -41,6 +43,26 @@ _MAX_DEPTH = 64
 class Dataset(NamedTuple):
     array: np.ndarray
     offset: Optional[int]  # byte offset of the raw data in the file
+    header: Optional[int] = None  # address of the object header
+
+
+class Superblock(NamedTuple):
+    base: int  # base address: file addresses are relative to it
+    so: int  # size of offsets
+    sl: int  # size of lengths
+    eof_at: int  # byte offset of the end-of-file address field
+
+
+def superblock(buf) -> Superblock:
+    """The superblock fields a writer needs, of the HDF5 file in `buf`."""
+    f = _File(bytes(buf))
+    return Superblock(f.base, f.so, f.sl, f.eof_at)
+
+
+def object_messages(buf, header):
+    """[(message type, byte offset of the message data, size)] of the
+    object header at address `header`, continuation blocks followed."""
+    return _File(bytes(buf))._messages(header)
 
 
 def read_h5(buf) -> dict:
@@ -64,6 +86,7 @@ class _File:
             raise ValueError(f"HDF5 offset/length sizes {self.so}/{self.sl} are not supported")
         pos = 24 if version == 0 else 28
         self.base = self._uint(pos, self.so)
+        self.eof_at = pos + 2 * self.so
         pos += 4 * self.so  # the base address and three more (free space, end of file, I/O info)
         self.root_header = self._uint(pos + self.so, self.so)  # root symbol table entry
 
@@ -122,7 +145,7 @@ class _File:
             return {name: self._object(child, depth + 1)
                     for name, child in self._group_entries(btree, heap)}
         if _LAYOUT in msgs:
-            return self._dataset(msgs)
+            return self._dataset(msgs)._replace(header=addr)
         raise ValueError("HDF5 object is neither a symbol-table group nor a dataset")
 
     # -- groups -------------------------------------------------------------

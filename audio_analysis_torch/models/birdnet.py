@@ -6,9 +6,17 @@ MagTransform, a stride-2 3x3 stem conv, then per width in ``channels`` two
 3x3 conv + BN + relu layers and a 2x2 SAME max-pool, global average pool
 and a two-layer dense head. Compute runs in ``cfg.dtype`` (float32, or
 bfloat16 with BN and the head in float32, as in the JAX package).
-``from_jax_params`` carries the JAX parameter tree (weights.npz) across.
+``from_jax_params`` carries the JAX parameter tree (weights.npz) across and
+``to_jax_params`` writes it back; ``init`` draws fresh weights from a
+``torch.Generator`` (the JAX package's ``init_params`` distributions).
+
+In ``.train()`` mode BatchNorm normalises with the batch statistics (mean
+and biased variance over N, H, W, gradients flowing through both) and
+``forward(x, with_stats=True)`` returns them, detached, for the running
+statistics' EMA (parallel/train.py).
 """
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,7 +42,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class _BatchNorm(nn.Module):
-    """Inference-mode BN (eps 1e-3) over the last (channel) axis."""
+    """BN (eps 1e-3) over the last (channel) axis: the running statistics
+    in eval mode, the batch's in train mode. Returns (y, batch statistics
+    or None)."""
 
     def __init__(self, c):
         super().__init__()
@@ -44,7 +54,13 @@ class _BatchNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(c))
 
     def forward(self, x):
-        return L.batch_norm(x, self.mean, self.var, self.gamma, self.beta, eps=1e-3)
+        if not self.training:
+            return L.batch_norm(x, self.mean, self.var, self.gamma, self.beta, eps=1e-3), None
+        # two passes, as jnp.var takes them: the centered biased variance
+        mean = x.mean(dim=(0, 1, 2))
+        var = torch.square(x - mean).mean(dim=(0, 1, 2))
+        y = L.batch_norm(x, mean, var, self.gamma, self.beta, eps=1e-3)
+        return y, {"mean": mean.detach(), "var": var.detach()}
 
 
 class _Block(nn.Module):
@@ -57,10 +73,12 @@ class _Block(nn.Module):
 
     def forward(self, y, dt):
         y = L.conv2d(y, self.w1.to(dt))
-        y = torch.relu(self.bn1(y.float()).to(dt))
+        y, s1 = self.bn1(y.float())
+        y = torch.relu(y.to(dt))
         y = L.conv2d(y, self.w2.to(dt))
-        y = torch.relu(self.bn2(y.float()).to(dt))
-        return L.max_pool2d(y, (2, 2), (2, 2), "SAME")
+        y, s2 = self.bn2(y.float())
+        y = torch.relu(y.to(dt))
+        return L.max_pool2d(y, (2, 2), (2, 2), "SAME"), {"bn1": s1, "bn2": s2}
 
 
 class TuiNet(nn.Module):
@@ -79,21 +97,63 @@ class TuiNet(nn.Module):
         self.head_w2 = nn.Parameter(torch.zeros(cfg.dense_units, cfg.num_classes))
         self.head_b2 = nn.Parameter(torch.zeros(cfg.num_classes))
 
-    def forward(self, x):
+    def forward(self, x, with_stats=False):
+        """x [B, n_mels, T, 1] -> logits [B, num_classes]; with
+        ``with_stats``, (logits, stats): per block {"bn1": {"mean", "var"},
+        "bn2": ...} of the batch in train mode (None in eval mode)."""
         dt = _DTYPES[self.cfg.dtype]
         y = mag_transform(torch.clamp(x, min=0.0), self.mag_a).to(dt)
         y = torch.relu(L.conv2d(y, self.stem_w.to(dt), self.stem_b.to(dt), strides=(2, 2)))
+        stats = []
         for blk in self.blocks:
-            y = blk(y, dt)
+            y, s = blk(y, dt)
+            stats.append(s)
         y = L.global_avg_pool2d(y.float())
         y = torch.relu(L.dense(y, self.head_w1, self.head_b1))
-        return L.dense(y, self.head_w2, self.head_b2)
+        logits = L.dense(y, self.head_w2, self.head_b2)
+        return (logits, stats) if with_stats else logits
+
+    @classmethod
+    def init(cls, cfg: TuiNetConfig, generator: torch.Generator = None) -> "TuiNet":
+        """Fresh weights drawn from `generator`, with the JAX package's
+        ``init_params`` distributions: He-normal conv kernels over their
+        fan-in and a He-normal first head layer, the second head layer
+        normal over sqrt(1/dense_units), biases 0, BN gamma 1, beta 0,
+        mean 0, var 1, mag_a -1. The draws are not ``jax.random``'s."""
+        net = cls(cfg)
+
+        def normal(p, std):
+            with torch.no_grad():
+                p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+        normal(net.stem_w, math.sqrt(2.0 / 9))
+        for blk in net.blocks:
+            for w in (blk.w1, blk.w2):
+                normal(w, math.sqrt(2.0 / (9 * w.shape[1])))
+        normal(net.head_w1, math.sqrt(2.0 / net.head_w1.shape[0]))
+        normal(net.head_w2, math.sqrt(1.0 / cfg.dense_units))
+        return net
+
+    def to_jax_params(self) -> dict:
+        """The JAX parameter tree as float32 numpy (conv kernels OIHW ->
+        HWIO): what ``weights.npz`` holds, the inverse of
+        ``from_jax_params``."""
+        n = lambda t: np.ascontiguousarray(t.detach().float().cpu().numpy())
+        hwio = lambda t: n(t.permute(2, 3, 1, 0))
+        bn = lambda m: {k: n(getattr(m, k)) for k in ("gamma", "beta", "mean", "var")}
+        return {
+            "mag_a": n(self.mag_a),
+            "stem": {"w": hwio(self.stem_w), "b": n(self.stem_b)},
+            "blocks": [{"w1": hwio(b.w1), "bn1": bn(b.bn1), "w2": hwio(b.w2), "bn2": bn(b.bn2)}
+                       for b in self.blocks],
+            "head": {k: n(getattr(self, f"head_{k}")) for k in ("w1", "b1", "w2", "b2")},
+        }
 
     @classmethod
     def from_jax_params(cls, params, cfg: TuiNetConfig) -> "TuiNet":
-        """Build the module from the JAX parameter tree (numpy arrays, as
-        ``weights.npz`` holds them): conv kernels HWIO -> OIHW, everything
-        else as it is."""
+        """Build the module, in eval mode, from the JAX parameter tree
+        (numpy arrays, as ``weights.npz`` holds them): conv kernels HWIO ->
+        OIHW, everything else as it is."""
         net = cls(cfg)
         t = lambda a: torch.from_numpy(np.array(a, np.float32))
         hwio = lambda a: t(a).permute(3, 2, 0, 1).contiguous()
@@ -113,4 +173,4 @@ class TuiNet(nn.Module):
                 for k in ("mean", "var", "gamma", "beta"):
                     state[f"blocks.{i}.{bn}.{k}"] = t(blk[bn][k])
         net.load_state_dict(state, strict=True)
-        return net
+        return net.eval()

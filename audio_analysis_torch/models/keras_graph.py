@@ -1,5 +1,5 @@
 """Execute imported Keras functional graphs as an ``nn.Module`` (the JAX
-package's models/keras_graph.py, its inference path).
+package's models/keras_graph.py).
 
 ``KerasModel.load(path)`` parses a ``.keras`` archive (io.keras_import) and
 builds the graph once: the execution order (the JAX executor's per-node
@@ -9,6 +9,14 @@ converted to PyTorch's layouts (and to the compute dtype) at load, held as
 buffers. ``forward`` is then a plain walk over that list. Tensors stay NHWC
 between layers, as in Keras: Flatten, Reshape, Permute, Concatenate and
 BatchNormalization's axis depend on it.
+
+``apply_train(params, x, generator)`` is the training forward over the
+Keras-layout leaves ``params`` ({weight key: [tensors]}, ``KerasModel.params``
+as read): each weight getter then builds its layer's weight from the live
+leaves with the same layout change and cast as at load, BatchNormalization
+normalises with the batch's statistics and returns them, and Dropout,
+SpatialDropout2D, GaussianNoise and GaussianDropout draw their masks from
+``generator``. The inference forward is unchanged by it.
 
 Covered layer set: everything the Cacophony classifier family and
 keras.applications EfficientNet need (Conv/DepthwiseConv/SeparableConv,
@@ -22,6 +30,7 @@ import base64
 import functools
 import inspect
 import marshal
+import math
 import operator
 import os
 import re
@@ -335,8 +344,16 @@ def _fails(msg):
 # classes whose config names an activation applied to their output
 _ACTIVATED = ("Conv2D", "DepthwiseConv2D", "SeparableConv2D", "Conv1D", "DepthwiseConv1D",
               "SeparableConv1D", "Conv2DTranspose", "Conv1DTranspose", "Dense", "Activation")
-_NO_TRAIN_WORK = ("Dropout", "SpatialDropout2D", "GaussianNoise", "GaussianDropout",
-                  "Identity", "ActivityRegularization")
+_NOISE_LAYERS = ("Dropout", "SpatialDropout2D", "GaussianNoise", "GaussianDropout",
+                 "Identity", "ActivityRegularization")
+
+
+class _TrainContext:
+    """One training forward's state, shared with nested models: the live
+    leaves, the mask generator and the batch statistics collected."""
+
+    def __init__(self, params, generator):
+        self.params, self.generator, self.stats = params, generator, {}
 
 
 class KerasModel(nn.Module):
@@ -347,7 +364,11 @@ class KerasModel(nn.Module):
     cast once at load, BatchNorm's scale and shift are folded in float32
     from the stored statistics and then cast, Dense accumulates and returns
     float32, and the output is cast back to float32. Off by default —
-    float32 keeps strict reference parity."""
+    float32 keeps strict reference parity.
+
+    ``params`` holds the archive's variables ({weight key: [numpy arrays]},
+    shared with nested models) in Keras's layouts: fine-tuning starts from
+    them, and ``replace_head`` changes them and rebuilds the layer."""
 
     def __init__(self, config, weights, name_prefix="", compute_dtype=None,
                  keras2=False):
@@ -356,6 +377,7 @@ class KerasModel(nn.Module):
         cfg = config["config"] if "config" in config else config
         self.name = cfg.get("name", "model")
         self._layers = cfg["layers"]
+        self._by_name = {_layer_name(l): l for l in self._layers}
         self._prefix = name_prefix
         self.keras2 = bool(keras2)
         if self.keras2:
@@ -381,18 +403,19 @@ class KerasModel(nn.Module):
             _dtype(compute_dtype) if compute_dtype not in (None, "float32") else None
         )
         self._class = config.get("class_name", "Functional")
-        self._weights = weights  # numpy, read while the layers are built
+        self.params = weights
+        self._train_ctx = None
         self._subs = {}
-        fns = {}
+        self._fns = {}
         for l in self._layers:
             if l["class_name"] != "InputLayer":
-                fns[_layer_name(l)] = self._build_layer(l)
-        del self._weights
+                self._fns[_layer_name(l)] = self._build_layer(l)
+        self._output_spec = None
         if self._class == "Sequential":
-            self._seq = [fns[_layer_name(l)] for l in self._layers
+            self._seq = [self._fns[_layer_name(l)] for l in self._layers
                          if l["class_name"] != "InputLayer"]
         else:
-            self._plan(cfg, fns)
+            self._plan(cfg, self._fns)
 
     # -- construction -------------------------------------------------------
 
@@ -415,6 +438,7 @@ class KerasModel(nn.Module):
             return spec
 
         output_spec = [tuple(o[:3]) for o in norm(cfg["output_layers"])]
+        self._output_spec = output_spec
         input_names = [i[0] for i in norm(cfg["input_layers"])]
         slots = {}
 
@@ -488,10 +512,45 @@ class KerasModel(nn.Module):
 
     # -- execution ----------------------------------------------------------
 
-    def apply_train(self, params, x, rng):
-        raise NotImplementedError(
-            "training-mode forwards are not ported yet (ROADMAP Queue 1, item 12)"
-        )
+    def apply_train(self, params, x, generator):
+        """Training-mode forward over the leaves `params` ({weight key:
+        [tensors]}, ``self.params``'s layout): BatchNormalization normalises
+        with the batch statistics (mean and centered biased variance over
+        every axis but its own, in float32) and Dropout, SpatialDropout2D
+        (one mask per batch and channel), GaussianNoise and GaussianDropout
+        are live, their draws taken in turn from `generator` (a
+        ``torch.Generator`` on x's device). Returns (y, batch_stats), where
+        batch_stats maps each BatchNormalization weight key to its
+        (batch_mean, batch_var), detached."""
+        ctx = _TrainContext(params, generator)
+        models = [m for m in self.modules() if isinstance(m, KerasModel)]
+        for m in models:
+            m._train_ctx = ctx
+        try:
+            y = self(x)
+        finally:
+            for m in models:
+                m._train_ctx = None
+        return y, ctx.stats
+
+    def rebuild_layer(self, key) -> bool:
+        """Rebuild the callable (and buffers) of the layer whose weight key
+        is `key` from ``params`` and its config, in this model or a nested
+        one; False when no layer has that key."""
+        for layer in self._layers:
+            cls, name = layer["class_name"], _layer_name(layer)
+            if cls in ("Functional", "Sequential"):
+                if self._subs[name].rebuild_layer(key):
+                    return True
+            elif cls != "InputLayer" and self._prefix + self._h5key[name] == key:
+                old = self._fns[name]
+                new = self._fns[name] = self._build_layer(layer)
+                if self._class == "Sequential":
+                    self._seq = [new if fn is old else fn for fn in self._seq]
+                else:
+                    self._steps = [(new,) + s[1:] if s[0] is old else s for s in self._steps]
+                return True
+        return False
 
     def _cast_in(self, x):
         cdt = self.compute_dtype
@@ -543,7 +602,7 @@ class KerasModel(nn.Module):
     def _vars(self, layer_name):
         """The layer's variables as float32 (or stored-dtype) tensors."""
         key = self._prefix + self._h5key[layer_name]
-        return [torch.from_numpy(np.array(a)) for a in self._weights.get(key, [])]
+        return [torch.from_numpy(np.array(a)) for a in self.params.get(key, [])]
 
     def _cast_w(self, t):
         """A weight in the compute dtype (cast once, here)."""
@@ -551,14 +610,33 @@ class KerasModel(nn.Module):
         return t.to(cdt) if cdt is not None and t.is_floating_point() else t
 
     def _buffer(self, t):
-        """Register `t` as a buffer (so it follows .to(device)); returns a
-        getter the layer callables read it through at run time."""
+        """Register `t` as a buffer of the layer being built (so it follows
+        .to(device); a rebuild overwrites it); returns a getter the layer
+        callables read it through at run time."""
         if t is None:
             return lambda: None
-        name = f"w{len(self._buffers)}"
+        name = f"{self._building}__{self._n_buffers}"
+        self._n_buffers += 1
         self.register_buffer(name, t)
         bufs = self._buffers
         return lambda: bufs[name]
+
+    def _param(self, key, vf, idx, fn):
+        """The weight ``fn(*vf[idx])`` (a layout change, a cast) of the layer
+        with weight key `key`, held as a buffer; returns its getter, which
+        in a training forward builds it from the live leaves
+        ``params[key][idx]`` instead, so gradients reach them."""
+        idx = (idx,) if isinstance(idx, int) else tuple(idx)
+        get = self._buffer(fn(*(vf[i] for i in idx)))
+
+        def weight():
+            ctx = self._train_ctx
+            if ctx is None:
+                return get()
+            leaves = ctx.params[key]
+            return fn(*(leaves[i] for i in idx))
+
+        return weight
 
     def _build_layer(self, layer):
         """The callable ``fn(args, kwargs)`` of one layer (the JAX
@@ -567,8 +645,14 @@ class KerasModel(nn.Module):
         cls = layer["class_name"]
         cfg = layer["config"]
         name = _layer_name(layer)
+        key = self._prefix + self._h5key[name]
+        self._building, self._n_buffers = self._h5key[name], 0
         vf = self._vars(name)  # float32 statistics, uncast
-        v = [self._cast_w(a) for a in vf]
+        cast = self._cast_w
+
+        def param(idx, fn=cast):
+            return self._param(key, vf, idx, fn)
+
         mod = layer.get("module") or ""
         if (mod.startswith("keras.src.ops") or mod.startswith("keras.ops")) and cls in _K3_OPS:
             op = _K3_OPS[cls]
@@ -586,22 +670,27 @@ class KerasModel(nn.Module):
         def unary(f):
             return lambda args, kwargs: f(args[0])
 
-        if cls in _NO_TRAIN_WORK:
-            return unary(lambda x: x)
+        if cls in _NOISE_LAYERS:
+            return unary(self._noise(cls, cfg))
         if "MagTransform" in cls or "MagTransform" in (layer.get("registered_name") or ""):
-            a = self._buffer(v[0])
+            a = param(0)
             return unary(lambda x: mag_transform(x, a()))
 
         act = self._act(cfg.get("activation")) if cls in _ACTIVATED else None
         use_bias = cfg.get("use_bias", True)
 
-        def conv_weights(kind, bias_at=1):
-            w = L.torch_kernel(v[0], kind)
-            if w.ndim == 4:
-                w = w.contiguous(memory_format=torch.channels_last)
-            wb = self._buffer(w)
-            bias = v[bias_at] if use_bias and len(v) > bias_at else None
-            return wb, self._buffer(bias)
+        def kernel(kind):
+            def layout(k):
+                w = L.torch_kernel(cast(k), kind)
+                return w.contiguous(memory_format=torch.channels_last) if w.ndim == 4 else w
+
+            return layout
+
+        def bias_at(i):
+            return param(i) if use_bias and len(vf) > i else (lambda: None)
+
+        def conv_weights(kind):
+            return param(0, kernel(kind)), bias_at(1)
 
         if cls in ("Conv2D", "DepthwiseConv2D", "SeparableConv2D"):
             strides = _pair(cfg.get("strides", 1))
@@ -616,9 +705,9 @@ class KerasModel(nn.Module):
                 w, b = conv_weights("depthwise")
                 return unary(lambda x: act(L.depthwise_conv2d(x, w(), b(), strides, padding,
                                                               dilation)))
-            dw = self._buffer(L.torch_kernel(v[0], "depthwise"))
-            pw = self._buffer(L.torch_kernel(v[1], "conv"))
-            b = self._buffer(v[2] if use_bias and len(v) > 2 else None)
+            dw = param(0, lambda k: L.torch_kernel(cast(k), "depthwise"))
+            pw = param(1, lambda k: L.torch_kernel(cast(k), "conv"))
+            b = bias_at(2)
             return unary(lambda x: act(L.conv2d(
                 L.depthwise_conv2d(x, dw(), None, strides, padding, dilation),
                 pw(), b(), (1, 1), "VALID")))
@@ -635,9 +724,9 @@ class KerasModel(nn.Module):
                 w, b = conv_weights("depthwise")
                 return unary(lambda x: act(L.depthwise_conv1d(x, w(), b(), strides, padding,
                                                               dilation)))
-            dw = self._buffer(L.torch_kernel(v[0], "depthwise"))
-            pw = self._buffer(L.torch_kernel(v[1], "conv"))
-            b = self._buffer(v[2] if use_bias and len(v) > 2 else None)
+            dw = param(0, lambda k: L.torch_kernel(cast(k), "depthwise"))
+            pw = param(1, lambda k: L.torch_kernel(cast(k), "conv"))
+            b = bias_at(2)
             return unary(lambda x: act(L.conv1d(
                 L.depthwise_conv1d(x, dw(), None, strides, padding, dilation),
                 pw(), b(), 1, "VALID")))
@@ -664,8 +753,8 @@ class KerasModel(nn.Module):
             # (preferred_element_type): with bf16 operands the products are
             # exact in float32, so the bf16-rounded weights are kept as
             # float32 and the input is widened
-            w = self._buffer(L.torch_kernel(v[0], "dense").float())
-            b = self._buffer(v[1].float() if use_bias and len(v) > 1 else None)
+            w = param(0, lambda k: L.torch_kernel(cast(k), "dense").float())
+            b = param(1, lambda t: cast(t).float()) if use_bias and len(vf) > 1 else (lambda: None)
             return unary(lambda x: act(F.linear(x.float(), w(), b())))
         if cls == "BatchNormalization":
             scale, center = cfg.get("scale", True), cfg.get("center", True)
@@ -684,9 +773,34 @@ class KerasModel(nn.Module):
             inv = torch.rsqrt(var.float() + eps)
             a = inv if gamma is None else gamma * inv
             sh = -mean * a if beta is None else beta - mean * a
-            a, sh = self._buffer(self._cast_w(a)), self._buffer(self._cast_w(sh))
+            a, sh = self._buffer(cast(a)), self._buffer(cast(sh))
+
+            def bn_train(x, ctx):
+                # the batch's statistics (Keras training semantics), in
+                # float32, from the live gamma and beta; the moving
+                # statistics are the EMA's (parallel/finetune.py)
+                leaves = ctx.params[key]
+                g = leaves[0] if scale else None
+                bt = leaves[1 if scale else 0] if center else None
+                ax = axis % x.ndim
+                red = tuple(d for d in range(x.ndim) if d != ax)
+                shape = [1] * x.ndim
+                shape[ax] = x.shape[ax]
+                xf = x.float()
+                # the centered moment, not E[x^2] - E[x]^2, which cancels
+                # catastrophically for large-mean activations
+                bm = xf.mean(red)
+                bv = torch.square(xf - bm.reshape(shape)).mean(red)
+                ctx.stats[key] = (bm.detach(), bv.detach())
+                inv_b = torch.rsqrt(bv + eps)
+                ab = inv_b if g is None else g * inv_b
+                sb = -bm * ab if bt is None else bt - bm * ab
+                return (xf * ab.reshape(shape) + sb.reshape(shape)).to(x.dtype)
 
             def bn(x):
+                ctx = self._train_ctx
+                if ctx is not None:
+                    return bn_train(x, ctx)
                 if axis in (-1, x.ndim - 1):
                     return torch.addcmul(sh(), x, a())
                 shape = [1] * x.ndim
@@ -719,7 +833,7 @@ class KerasModel(nn.Module):
         if cls == "PReLU":
             # alpha is shaped like input[1:] with shared axes at 1 — it
             # broadcasts against x directly
-            alpha = self._buffer(v[0])
+            alpha = param(0)
             return unary(lambda x: torch.relu(x) - alpha() * torch.relu(-x))
         if cls == "Softmax":
             axis = cfg.get("axis", -1)
@@ -757,14 +871,14 @@ class KerasModel(nn.Module):
             size = int(cfg.get("size", 2))
             return unary(lambda x: x.repeat_interleave(size, dim=1))
         if cls == "LayerNormalization":
-            return unary(self._layer_norm(cfg, vf))
+            return unary(self._layer_norm(cfg, vf, param))
         if cls == "UnitNormalization":
             axes = cfg.get("axis", -1)
             axes = tuple(axes) if isinstance(axes, (list, tuple)) else (axes,)
             return unary(lambda x: x / torch.clamp(
                 torch.sqrt(torch.sum(torch.square(x), axes, keepdim=True)), min=1e-12))
         if cls == "Embedding":
-            table = self._buffer(v[0])
+            table = param(0)
             return unary(lambda x: table()[x.long()])
         if cls == "Flatten":
             return unary(lambda x: x.reshape(x.shape[0], -1))
@@ -792,7 +906,7 @@ class KerasModel(nn.Module):
                     for c in (cfg.get("scale", 1.0), cfg.get("offset", 0.0)))
             return unary(lambda x: x * s() + o())
         if cls == "Normalization":
-            return unary(self._normalization(cfg, vf))
+            return unary(self._normalization(cfg, vf, param))
         if cls in ("Add", "Subtract", "Multiply", "Average", "Maximum", "Minimum",
                    "Concatenate"):
             merge = {
@@ -831,7 +945,7 @@ class KerasModel(nn.Module):
         if cls in ("Functional", "Sequential"):
             sub = KerasModel(
                 layer,
-                self._weights,
+                self.params,
                 name_prefix=self._prefix + self._h5key[name] + "/layers/",
                 compute_dtype=self.compute_dtype,
                 keras2=self.keras2,
@@ -841,15 +955,50 @@ class KerasModel(nn.Module):
             return lambda args, kwargs: sub(args[0] if len(args) == 1 else args)
         return _fails(f"unsupported Keras layer {cls} ({name})")
 
-    def _layer_norm(self, cfg, vf):
+    def _noise(self, cls, cfg):
+        """The regularisation layers: the identity, except in a training
+        forward, where Dropout (``noise_shape`` broadcast, e.g.
+        EfficientNet's stochastic depth), SpatialDropout2D (one mask per
+        batch and channel), GaussianNoise and GaussianDropout draw from the
+        context's generator."""
+        rate = float(cfg.get("rate", 0.0) or 0.0)
+        stddev = float(cfg.get("stddev", 0.0) or 0.0)
+
+        def noise(x):
+            ctx = self._train_ctx
+            if ctx is None:
+                return x
+            gen = ctx.generator
+            if cls in ("Dropout", "SpatialDropout2D") and rate > 0:
+                shape = list(x.shape)
+                if cls == "SpatialDropout2D":
+                    shape[1] = shape[2] = 1
+                elif cfg.get("noise_shape"):
+                    # None dims follow the input, fixed dims broadcast
+                    shape = [x.shape[d] if n is None else int(n)
+                             for d, n in enumerate(cfg["noise_shape"])]
+                keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - rate
+                return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+            if cls == "GaussianNoise" and stddev:
+                return x + stddev * torch.randn(x.shape, generator=gen, device=x.device,
+                                                dtype=x.dtype)
+            if cls == "GaussianDropout" and rate > 0:
+                std = math.sqrt(rate / (1.0 - rate))
+                return x * (1.0 + std * torch.randn(x.shape, generator=gen, device=x.device,
+                                                    dtype=x.dtype))
+            return x
+
+        return noise
+
+    def _layer_norm(self, cfg, vf, param):
         axes = cfg.get("axis", -1)
         axes = tuple(axes) if isinstance(axes, (list, tuple)) else (axes,)
         eps = cfg.get("epsilon", 1e-3)
         i = 0
-        gamma = vf[i] if cfg.get("scale", True) and len(vf) > i else None
+        # float32 statistics path: gamma and beta uncast
+        gamma = param(i, lambda t: t) if cfg.get("scale", True) and len(vf) > i else (lambda: None)
         i += 1 if cfg.get("scale", True) else 0
-        beta = vf[i] if cfg.get("center", True) and len(vf) > i else None
-        gamma, beta = self._buffer(gamma), self._buffer(beta)  # float32 statistics path
+        beta = param(i, lambda t: t) if cfg.get("center", True) and len(vf) > i else (lambda: None)
         rms = cfg.get("rms_scaling", False)
 
         def layer_norm(x):
@@ -876,10 +1025,22 @@ class KerasModel(nn.Module):
 
         return layer_norm
 
-    def _normalization(self, cfg, vf):
+    def _normalization(self, cfg, vf, param):
         cdt = self.compute_dtype
+        invert = cfg.get("invert", False)
         if len(vf) >= 2:  # adapt()-ed stats are stored as weights
-            mean, var, axis = vf[0].float(), vf[1].float(), None
+            def scale_shift(mean, var):
+                mean, var = mean.float(), var.float()
+                if invert:
+                    return torch.sqrt(var), mean
+                if cdt is not None:
+                    a = torch.rsqrt(var)
+                    return a.to(cdt), (-mean * a).to(cdt)
+                return torch.sqrt(var), mean
+
+            a = param((0, 1), lambda m, v: scale_shift(m, v)[0])
+            b = param((0, 1), lambda m, v: scale_shift(m, v)[1])
+            axis = None
         else:
             # constructor-supplied stats live in the CONFIG, not the weights
             # (e.g. EfficientNetV2's ImageNet mean/variance)
@@ -893,15 +1054,16 @@ class KerasModel(nn.Module):
             var = torch.as_tensor(var, dtype=torch.float32)
             if not mean.ndim:
                 axis = None
-        if cfg.get("invert", False):
-            a, b, kind = torch.sqrt(var), mean, "invert"
-        elif cdt is not None:
-            # no epsilon: Keras divides by sqrt(var) as stored
-            a = torch.rsqrt(var)
-            a, b, kind = a.to(cdt), (-mean * a).to(cdt), "fold"
-        else:
-            a, b, kind = torch.sqrt(var), mean, "divide"
-        a, b = self._buffer(a), self._buffer(b)
+            if invert:
+                a, b = torch.sqrt(var), mean
+            elif cdt is not None:
+                # no epsilon: Keras divides by sqrt(var) as stored
+                a = torch.rsqrt(var)
+                a, b = a.to(cdt), (-mean * a).to(cdt)
+            else:
+                a, b = torch.sqrt(var), mean
+            a, b = self._buffer(a), self._buffer(b)
+        kind = "invert" if invert else ("fold" if cdt is not None else "divide")
 
         def normalize(x):
             sa, sb = a(), b()

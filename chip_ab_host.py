@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Warm wall times of the TuiNet paths of two checkouts, in turns on one GPU.
+"""Warm wall times of the TuiNet and EfficientNetB0 paths of two checkouts,
+in turns on one GPU.
 
     python3 chip_ab_host.py TREE_A TREE_B [--runs 9]
 
@@ -8,8 +9,11 @@ on sys.path: the process builds the checkout's kernels and writes its
 chip_smoke.py fixtures (a seeded 60 s WAV and a full-width float32 TuiNet;
 8 seeded 60 s WAVs with a bird and a pre-model TuiNet in bfloat16), runs the
 analyse CLI at the exact level once cold and ``--runs`` times warm, then the
-``AAT_FAST=1`` batch CLI (8 x 60 s) once cold and ``--runs`` times warm, and
-prints one JSON line with every warm wall time. The last line gives, per
+``AAT_FAST=1`` batch CLI (8 x 60 s) once cold and ``--runs`` times warm,
+then writes the seeded EfficientNetB0 fixture and times its forward alone
+on a [64, 160, 226, 3] grid in float32 and bfloat16 (ms a forward over 10,
+CUDA events, ``--runs`` times) and the exact analyse CLI with it once cold
+and ``--runs`` times warm, and prints one JSON line with every warm time. The last line gives, per
 tree, the median of its warm samples over both its turns. Host-clock times:
 compare two trees only within one call.
 """
@@ -49,7 +53,22 @@ with tempfile.TemporaryDirectory() as tmp:
     os.environ["AAT_FAST"] = "1"
     cs.run_batch_cli(wavs, models, "cuda")
     batch = [cs.run_batch_cli(wavs, models, "cuda")[1] for _ in range(runs)]
-print(json.dumps({"tree": sys.argv[1], "exact_warm_s": exact, "batch_warm_s": batch}))
+    os.environ.pop("AAT_FAST")
+    import torch
+    from audio_analysis_torch.models import KerasModel
+    eff = cs.efficientnet_fixture(tmp / "effnet")
+    grid = cs.effnet_grid(cs.make_recording())
+    forward = {}
+    with torch.inference_mode():
+        for dtype in ("float32", "bfloat16"):
+            net = KerasModel.load(eff / "audioModel.keras", compute_dtype=dtype).to("cuda")
+            net(grid)
+            forward[dtype] = [cs.time_ms(lambda: net(grid), 10) for _ in range(runs)]
+    cs.run_cli(wav, eff, "cuda")
+    eff_exact = [cs.run_cli(wav, eff, "cuda")[1] for _ in range(runs)]
+print(json.dumps({"tree": sys.argv[1], "exact_warm_s": exact, "batch_warm_s": batch,
+                  "effnet_f32_ms": forward["float32"], "effnet_bf16_ms": forward["bfloat16"],
+                  "effnet_exact_warm_s": eff_exact}))
 """
 
 
@@ -60,7 +79,8 @@ def main():
     ap.add_argument("--runs", type=int, default=9)
     args = ap.parse_args()
     trees = [str(Path(t).resolve()) for t in (args.tree_a, args.tree_b)]
-    samples = {t: {"exact_warm_s": [], "batch_warm_s": []} for t in trees}
+    samples = {t: {k: [] for k in ("exact_warm_s", "batch_warm_s", "effnet_f32_ms",
+                                   "effnet_bf16_ms", "effnet_exact_warm_s")} for t in trees}
     for tree in (trees[0], trees[1], trees[1], trees[0]):
         out = subprocess.run([sys.executable, "-c", TURN, tree, str(args.runs)], cwd=tree,
                              capture_output=True, text=True, timeout=900)

@@ -20,7 +20,8 @@
    computing the same function (CUDA events). The float64 DFTs (stft_mel,
    stft_mag) must agree to max rel 1e-6 and bit for bit across two
    launches; stft_mag is timed beside torch.stft in float32 and in float64,
-   and once more at n_fft 4400 (2^4 5^2 11), which takes the direct route;
+   and once more at n_fft 4400 (2^4 5^2 11), which takes the direct route,
+   as does stft_mel at n_fft 4400 on the classify grid;
    row_medians and col_medians bit for bit against their plain versions and
    np.median;
    stft_mel_bf16 against the plain version of its route (``dif`` for
@@ -101,9 +102,22 @@
    embeddings group alone; a full-width TuiNet with ``use_mfcc`` on the
    exact CLI and the fast batch, and the frontend's ms over [64, 144000]
    with mfcc off and on at both levels;
-10. prints one JSON line of the EfficientNetB0 numbers, one of the packed
-   morphology's, one of the side paths', one describing every kernel, the
-   card's name and power limit, then the last line
+10. training (``check_training``): a full-width TuiNet from seeded weights
+   carried in, its first step's loss and gradients against the CPU (through
+   ``loss_fn``, and on positive features so that every conv gradient is
+   nonzero; TF32 off), then ``make_train_step`` at batch 64 of 3 s windows
+   ([64, 144000]) in float32 and bfloat16 at the exact level and bfloat16
+   under AAT_FAST=1: ms a step (CUDA events), windows/s, peak memory, one
+   profiled step, the kernel launches a step (stft_mel 1, or the dif route
+   of stft_mel_bf16 1); the trained checkpoint saved and served by the
+   exact analyse CLI on the card and the CPU; then EfficientNetB0 with a new
+   4-label head fine-tuned at batch 32 on [32, 160, 226, 3] (features each
+   step, as the fine-tune CLI takes them), the same numbers, exported
+   without h5py, read back leaf for leaf and served by the exact CLI on the
+   card and the CPU;
+11. prints one JSON line of the EfficientNetB0 numbers, one of the packed
+   morphology's, one of the side paths', one of training's, one describing
+   every kernel, the card's name and power limit, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
@@ -255,9 +269,9 @@ def write_tuinet_model(model_dir, seed=0, channels=(64, 128, 256), stem=32, dens
 
 def seeded_keras_archive(zero_archive, archive, seed, calibrate=None):
     """Write `archive`: the committed zero-weight `zero_archive` with its
-    weights overwritten in place, at each dataset's offset in the HDF5
-    bytes that io/h5read.py reports, by weights drawn from a numpy seed:
-    conv and dense kernels He-normal over their fan-in, biases 0,
+    weights drawn from a numpy seed and written in place by the port's
+    ``write_keras_archive`` (at each dataset's offset that io/h5read.py
+    reports): conv and dense kernels He-normal over their fan-in, biases 0,
     BatchNorm gamma ~1 and beta ~0 (perturbed), its moving mean 0 and
     variance 1, Normalization mean 0 and variance 1 (it divides with no
     epsilon). Then ``calibrate(config, weights)``, given the seeded
@@ -267,19 +281,14 @@ def seeded_keras_archive(zero_archive, archive, seed, calibrate=None):
     import zipfile
 
     from audio_analysis_torch.io.h5read import read_h5
+    from audio_analysis_torch.io.keras_export import write_keras_archive
     from audio_analysis_torch.io.keras_import import read_keras_archive
 
     archive = Path(archive)
-    archive.parent.mkdir(parents=True, exist_ok=True)
     with zipfile.ZipFile(zero_archive) as z:
-        files = {n: z.read(n) for n in z.namelist()}
-    h5 = bytearray(files["model.weights.h5"])
+        tree = read_h5(z.read("model.weights.h5"))
     rng = np.random.RandomState(seed)
-    datasets = {}  # weight key -> {variable index: dataset}
-
-    def put(item, new):
-        raw = np.ascontiguousarray(new, dtype=item.array.dtype).tobytes()
-        h5[item.offset : item.offset + len(raw)] = raw
+    params = {}  # weight key -> {variable index: array}
 
     def fill(tree, path):
         for key in sorted(tree):
@@ -287,34 +296,33 @@ def seeded_keras_archive(zero_archive, archive, seed, calibrate=None):
             if isinstance(item, dict):
                 fill(item, path + (key,))
                 continue
-            if item.offset is None or path[-1:] != ("vars",):
+            if path[-1:] != ("vars",):
                 continue
+            vs = params.setdefault("/".join(path[1:-1]), {})
             layer, i, shape = path[-2].rstrip("0123456789").rstrip("_"), int(key), item.array.shape
-            datasets.setdefault("/".join(path[1:-1]), {})[i] = item
-            if layer == "normalization":  # mean, variance, count
-                put(item, np.full(shape, (0, 1, 0)[i]))
+            if item.offset is None:  # no storage: nothing to draw
+                vs[i] = item.array
+            elif layer == "normalization":  # mean, variance, count
+                vs[i] = np.full(shape, (0, 1, 0)[i])
             elif layer == "batch_normalization":  # gamma, beta, moving mean, variance
-                put(item, (1.0, 0.0)[i] + 0.1 * rng.randn(*shape) if i < 2
-                    else np.full(shape, (0.0, 1.0)[i - 2]))
+                vs[i] = ((1.0, 0.0)[i] + 0.1 * rng.randn(*shape) if i < 2
+                         else np.full(shape, (0.0, 1.0)[i - 2]))
             elif len(shape) >= 2:  # conv (HWIO, WIO), depthwise (h, w, C, 1), dense ([in, out])
                 fan_in = int(np.prod(shape[:-2])) * (1 if "depthwise" in layer else shape[-2])
-                put(item, rng.randn(*shape) * np.sqrt(2.0 / fan_in))
+                vs[i] = rng.randn(*shape) * np.sqrt(2.0 / fan_in)
             else:  # biases
-                put(item, np.zeros(shape))
+                vs[i] = np.zeros(shape)
 
     def write():
-        files["model.weights.h5"] = bytes(h5)
-        with zipfile.ZipFile(archive, "w", zipfile.ZIP_DEFLATED) as z:
-            for n, data in files.items():
-                z.writestr(n, data)
+        write_keras_archive(zero_archive, {k: [vs[i] for i in sorted(vs)]
+                                           for k, vs in params.items()}, archive)
 
-    fill(read_h5(bytes(h5)), ())
+    fill(tree, ())
     write()
     if calibrate is not None:
         config, weights, _ = read_keras_archive(archive)
         for key, new in calibrate(config, weights).items():
-            for i, a in new.items():
-                put(datasets[key][i], a)
+            params[key].update(new)
         write()
     return archive
 
@@ -463,7 +471,7 @@ def bn_batch_stats(config, weights, x):
             if layer["class_name"] != "BatchNormalization":
                 return super()._build_layer(layer)
             key = self._prefix + self._h5key[_layer_name(layer)]
-            gamma, beta = (torch.from_numpy(np.asarray(a)) for a in self._weights[key][:2])
+            gamma, beta = (torch.from_numpy(np.asarray(a)) for a in self.params[key][:2])
             eps = layer["config"].get("epsilon", 1e-3)
 
             def bn(args, kwargs):
@@ -750,6 +758,19 @@ def check_kernels(pcm):
         out_bytes=64 * 160 * f_cls * 4, in_bytes=64 * sample * 4, frames=64 * f_cls,
         n_fft=4096, mel_nnz=nnz_cls, route=dft_route(4096, bins_cls, True), iters=5,
     )
+    # the direct route, at an n_fft the FFT does not take (4400 = 2^4 5^2 11)
+    kw_dir = dict(kw_cls, n_fft=4400)
+    nnz_dir = int((filterbank_np(SR, 160, 50.0, 11000.0, 4400, 1750.0, True) != 0).sum())
+    bins_dir = mel_support_bins(SR, 160, 50.0, 11000.0, 4400, 1750.0, True)
+    res["stft_mel[direct, n_fft 4400]"] = dft_entry(
+        "stft_mel[direct, n_fft 4400]",
+        "audio_analysis_tpu/ops/pallas/melspec.py:391 (_kernel_dif)",
+        lambda: ms.stft_mel(win, **kw_dir), lambda: ms.stft_mel_plain(win, **kw_dir), {},
+        out_bytes=64 * 160 * f_cls * 4, in_bytes=64 * sample * 4, frames=64 * f_cls,
+        n_fft=4400, mel_nnz=nnz_dir, route=dft_route(4400, bins_dir, True), iters=2,
+    )
+    if res["stft_mel[direct, n_fft 4400]"]["dft_route"] != "direct":
+        raise AssertionError("stft_mel at n_fft 4400 did not take the direct route")
 
     # detection |STFT| of the recording, zeroed past the end-scan's data end
     mx, mn = _batch_chunk_flatness(y, sr=SR, hop_length=hop)
@@ -1574,6 +1595,235 @@ def check_mfcc(tmp, wav, wavs, pcm, exact_path, fast_path, device="cuda"):
     return m
 
 
+TRAIN_BATCH = 64  # TuiNet training: [64, 144000] PCM, 3 s windows
+TRAIN_STEPS = 5  # timed steps a configuration
+TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, the first step's loss
+TRAIN_GRAD_TOL = 1e-3  # card vs CPU, each gradient leaf, relative L2
+FINETUNE_BATCH = 32  # EfficientNetB0 fine-tuning: [32, 160, 226, 3]
+FINETUNE_LABELS = ["kiwi", "morepork", "tui", "noise"]
+
+
+def train_windows(pcm, n, seed):
+    """`n` 3 s windows of the recording's sound at seeded starts, and
+    seeded labels (4 classes), on the card."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    starts = rng.randint(0, int(SILENT_FROM * SR) - 3 * SR, n)
+    windows = np.stack([pcm[s : s + 3 * SR] for s in starts])
+    labels = rng.randint(0, 4, n)
+    dev = torch.device("cuda")
+    return torch.from_numpy(windows).to(dev), torch.from_numpy(labels).to(dev)
+
+
+def grads_against_cpu(tag, net, forward, batch):
+    """`forward(net, order)` -> loss over the batch taken in `order` (a
+    permutation of range(`batch`)), run on the card's `net` and on its CPU
+    copy in the natural order, and on a second CPU copy in a seeded
+    permutation; backward on each. The losses must agree within
+    TRAIN_LOSS_RTOL, and each parameter's gradient within TRAIN_GRAD_TOL in
+    relative L2 norm, ||card - CPU|| / ||CPU||, or within 3x the CPU's own
+    relative difference under the permutation where that is larger (the
+    float32 noise of its sums: training-mode BatchNorm turns the gradients
+    of the layers before it into sums that cancel). TF32 off. Also reports
+    each leaf's max abs difference over its max abs. Returns the worst
+    ratios and the losses."""
+    import copy
+
+    import torch
+
+    natural = torch.arange(batch)
+    shuffled = torch.from_numpy(np.random.RandomState(8).permutation(batch))
+    cpu, cpu_p = copy.deepcopy(net).cpu(), copy.deepcopy(net).cpu()
+    losses = [forward(net, natural), forward(cpu, natural), forward(cpu_p, shuffled)]
+    for loss in losses:
+        loss.backward()
+    loss_g, loss_c, loss_p = (loss.item() for loss in losses)
+    worst = {"over_tol": 0.0, "rel_l2": 0.0, "max_abs_over_max": 0.0, "cpu_noise_rel_l2": 0.0}
+    for (name, g), (_, c), (_, q) in zip(net.named_parameters(), cpu.named_parameters(),
+                                         cpu_p.named_parameters()):
+        norm = float(c.grad.norm()) or 1.0
+        rel = float((g.grad.cpu() - c.grad).norm()) / norm
+        noise = float((q.grad - c.grad).norm()) / norm
+        tol = max(TRAIN_GRAD_TOL, 3 * noise)
+        if rel > tol:
+            raise AssertionError(f"{tag}: gradient {name} card vs CPU {rel:.3g} in relative L2 "
+                                 f"(tolerance {tol:.3g}; the CPU under a permutation {noise:.3g})")
+        big = float(c.grad.abs().max()) or 1.0
+        for k, v in (("over_tol", rel / tol), ("rel_l2", rel), ("cpu_noise_rel_l2", noise),
+                     ("max_abs_over_max", float((g.grad.cpu() - c.grad).abs().max()) / big)):
+            worst[k] = max(worst[k], v)
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    if rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{tag}: loss card {loss_g} vs CPU {loss_c}")
+    net.zero_grad(set_to_none=True)
+    return {"loss": loss_g, "loss_cpu": loss_c, "loss_cpu_permuted": loss_p, "loss_rel": rel,
+            **{f"worst_{k}": v for k, v in worst.items()},
+            "zero_grad_params": sum(int(not p.grad.any()) for p in cpu.parameters())}
+
+
+def timed_steps(one_step, windows):
+    """One step to warm up, then TRAIN_STEPS timed with CUDA events (ms a
+    step, windows/s), the peak memory over them, one profiled step (device
+    busy, idle share) and one step with the kernel counts reset around
+    it."""
+    import torch
+
+    one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(one_step, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_device(one_step)
+    reset_counts()
+    one_step()
+    torch.cuda.synchronize()
+    return dict(ms=ms, windows_per_s=windows / ms * 1e3, peak_mem_bytes=peak,
+                **{k: prof[k] for k in ("profiled_wall_ms", "device_busy_ms", "idle_share",
+                                        "device_kernels")},
+                top=prof["top"][:5], launches=read_counts())
+
+
+def check_training(tmp, wav, pcm, effnet_dir):
+    """The training path: TuiNet at full width trained from seeded
+    weights carried in, and EfficientNetB0 fine-tuned with a new head; each
+    served by the exact analyse CLI on the card and on the CPU. Returns the
+    measurements and the launches of each path."""
+    import torch
+
+    from audio_analysis_torch.cli.train import checkpoint_meta
+    from audio_analysis_torch.io.checkpoint import load_checkpoint_params, save_checkpoint
+    from audio_analysis_torch.io.keras_export import write_keras_archive
+    from audio_analysis_torch.io.modelconfig import ModelConfig
+    from audio_analysis_torch.models import KerasModel
+    from audio_analysis_torch.models.birdnet import TuiNet, TuiNetConfig
+    from audio_analysis_torch.parallel import finetune, train
+    from audio_analysis_torch.pipeline.classify import features_for_config
+
+    dev = torch.device("cuda")
+    m, launches = {"card": card_line()}, {}
+    carried = load_checkpoint_params(write_tuinet_model(tmp / "train-init", seed=5))
+    windows, labels = train_windows(pcm, TRAIN_BATCH, seed=5)
+    os.environ.pop("AAT_FAST", None)
+
+    # the first step against the CPU: through loss_fn (dB features, which
+    # TuiNet's clamp zeroes: no conv gradient) and on positive features
+    cfg32 = TuiNetConfig(num_classes=len(LABELS), dtype="float32")
+    net = TuiNet.from_jax_params(carried, cfg32).to(dev).train()
+    t0 = time.perf_counter()
+    m["first_step_vs_cpu"] = grads_against_cpu(
+        "TuiNet loss_fn", net,
+        lambda n, order: train.loss_fn(n, windows[order.to(dev)].to(next(n.parameters()).device),
+                                       labels[order.to(dev)].to(next(n.parameters()).device),
+                                       SR, 640)[0], TRAIN_BATCH)
+    x = torch.from_numpy(np.abs(np.random.RandomState(6).randn(16, 160, 226, 1))
+                         .astype(np.float32) * 3.0).to(dev)
+    y = labels[:16]
+
+    def positive(n, order):
+        d = next(n.parameters()).device
+        logits = n(x[order.to(dev)].to(d))
+        return -torch.log_softmax(logits, 1).gather(
+            1, y[order.to(dev)].to(d).long()[:, None]).mean()
+
+    m["positive_features_vs_cpu"] = grads_against_cpu("TuiNet positive features", net,
+                                                      positive, 16)
+    if m["positive_features_vs_cpu"]["zero_grad_params"]:
+        raise AssertionError("a TuiNet parameter has no gradient on positive features")
+    m["cpu_check_s"] = time.perf_counter() - t0
+
+    for tag, dtype, fast in (("float32", "float32", False), ("bfloat16", "bfloat16", False),
+                             ("bfloat16 fast", "bfloat16", True)):
+        if fast:
+            os.environ["AAT_FAST"] = "1"
+        net = TuiNet.from_jax_params(carried, TuiNetConfig(num_classes=len(LABELS),
+                                                           dtype=dtype)).to(dev)
+        opt = train.make_optimizer(net, lr=1e-3)
+        step = train.make_train_step(sr=SR, hop_length=640)
+        losses = []
+
+        def one_step():
+            loss, _ = step(net, opt, windows, labels)
+            losses.append(loss)
+
+        m[tag] = timed_steps(one_step, TRAIN_BATCH)
+        m[tag]["losses"] = [float(l) for l in losses[:3]]
+        if not all(math.isfinite(l) for l in m[tag]["losses"]):
+            raise AssertionError(f"TuiNet training {tag}: losses {m[tag]['losses']}")
+        launches[f"train_tuinet_{'fast' if fast else 'exact'}"] = m[tag]["launches"]
+        os.environ.pop("AAT_FAST", None)
+        if tag == "float32":
+            trained = net
+    require_launches("TuiNet training step (exact)", launches["train_tuinet_exact"],
+                     {"stft_mel": 1, "stft_mel.direct": 0, "stft_mel_bf16": 0,
+                      "stft_mag": 0, "row_medians": 0, "col_medians": 0})
+    require_launches("TuiNet training step (fast)", launches["train_tuinet_fast"],
+                     {"stft_mel_bf16": 1, "stft_mel_bf16.direct": 0, "stft_mel": 0,
+                      "stft_mag": 0, "row_medians": 0, "col_medians": 0})
+
+    # the trained checkpoint, served by the exact analyse CLI
+    trained_dir = save_checkpoint(tmp / "trained-tuinet", trained.to_jax_params(),
+                                  checkpoint_meta(LABELS, 160, 640, cfg32.channels))
+    res, wall, launches["analyse_exact_trained_tuinet"] = run_cli(wav, trained_dir, "cuda")
+    cpu_res, cpu_wall, _ = run_cli(wav, trained_dir, "cpu")
+    m["trained_cli"] = {"wall_s": wall, "cpu_wall_s": cpu_wall,
+                        "max_confidence_diff": compare_results(res, cpu_res, confidence_tol=1),
+                        **summary_of(res)}
+    require_launches("analyse with the trained TuiNet", launches["analyse_exact_trained_tuinet"],
+                     {"stft_mel": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
+                      "stft_mel_bf16": 0, "stft_mel.direct": 0, "stft_mag.direct": 0})
+
+    # EfficientNetB0: a new 4-label head, fine-tuned in float32 at batch 32
+    cfg = ModelConfig.load(effnet_dir)
+    km = KerasModel.load(effnet_dir / "audioModel.keras")
+    head = finetune.replace_head(km, len(FINETUNE_LABELS), seed=0)
+    params, opt, step = finetune.build_finetune(km, dev, lr=1e-4)
+    ft_windows, ft_labels = train_windows(pcm, FINETUNE_BATCH, seed=7)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = []
+
+    def ft_step():
+        with torch.no_grad():
+            feats = features_for_config(ft_windows, SR, cfg).repeat_interleave(3, dim=-1)
+        loss, _ = step(params, opt, feats, ft_labels, gen)
+        losses.append(loss)
+
+    m["finetune_efficientnet"] = timed_steps(ft_step, FINETUNE_BATCH)
+    m["finetune_efficientnet"]["losses"] = [float(l) for l in losses[:3]]
+    launches["finetune_efficientnet"] = m["finetune_efficientnet"]["launches"]
+    require_launches("EfficientNetB0 fine-tune step", launches["finetune_efficientnet"],
+                     {"stft_mel": 1, "stft_mel.direct": 0, "stft_mel_bf16": 0, "stft_mag": 0,
+                      "row_medians": 0, "col_medians": 0})
+    if not all(math.isfinite(l) for l in m["finetune_efficientnet"]["losses"]):
+        raise AssertionError(f"EfficientNetB0 fine-tune losses {losses}")
+
+    # exported without h5py, reloaded by the port's reader, served
+    tuned = tmp / "effnet-tuned"
+    write_keras_archive(effnet_dir, params, tuned / "audioModel.keras", config=km.config)
+    meta = {**cfg.raw, "labels": FINETUNE_LABELS}
+    meta.pop("ebird_ids", None)
+    meta.pop("bird_labels", None)
+    (tuned / "metadata.txt").write_text(json.dumps(meta, indent=4, sort_keys=True))
+    back = KerasModel.load(tuned / "audioModel.keras")
+    if [a.shape for a in back.params[head]] != [tuple(p.shape) for p in params[head]]:
+        raise AssertionError("the exported head reads back at another shape")
+    for key, leaves in params.items():
+        for i, t in enumerate(leaves):
+            if not np.array_equal(back.params[key][i], t.detach().cpu().numpy()):
+                raise AssertionError(f"exported {key}/{i} reads back different")
+    res, wall, launches["analyse_exact_tuned_efficientnet"] = run_cli(wav, tuned, "cuda")
+    cpu_res, cpu_wall, _ = run_cli(wav, tuned, "cpu")
+    m["tuned_cli"] = {"wall_s": wall, "cpu_wall_s": cpu_wall,
+                      "max_confidence_diff": compare_results(res, cpu_res, confidence_tol=1),
+                      "labels": count_labels([res]), **summary_of(res)}
+    require_launches("analyse with the tuned EfficientNetB0",
+                     launches["analyse_exact_tuned_efficientnet"],
+                     {"stft_mel": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
+                      "stft_mel_bf16": 0, "stft_mel.direct": 0, "stft_mag.direct": 0})
+    log(json.dumps({"training": m}))
+    return m, launches
+
+
 def main():
     import torch
 
@@ -1898,6 +2148,13 @@ def main():
         side_launches = {"analyse_morepork": side["morepork"]["launches"],
                          **side["embeddings"]["launches"], **side["mfcc"]["launches"]}
 
+        # training: TuiNet from seeded weights, EfficientNetB0 fine-tuned,
+        # each served by the exact CLI
+        t0 = time.perf_counter()
+        training, train_launches = check_training(tmp, wav, pcm, effnet)
+        side_launches.update(train_launches)
+        log(f"training phase {time.perf_counter() - t0:.1f} s")
+
     out = []
     for name, m in kernels.items():
         base = name.split("[")[0]
@@ -1940,6 +2197,15 @@ def main():
         "embeddings": {k: side["embeddings"]["exact"][k] for k in (
             "windows", "resample_ms", "gather_ms", "embedder_ms")},
         "mfcc_frontend_ms": side["mfcc"]["frontend_ms"]}}))
+    log(json.dumps({"training_summary": {
+        k: {q: training[k][q] for q in ("ms", "windows_per_s", "peak_mem_bytes",
+                                        "device_busy_ms", "idle_share", "launches")}
+        for k in ("float32", "bfloat16", "bfloat16 fast", "finetune_efficientnet")} | {
+        "first_step_vs_cpu": training["first_step_vs_cpu"],
+        "positive_features_vs_cpu": training["positive_features_vs_cpu"],
+        "trained_cli": training["trained_cli"]["max_confidence_diff"],
+        "tuned_cli": training["tuned_cli"]["max_confidence_diff"],
+        "card": training["card"]}}))
     log(json.dumps({"kernels": out}))
     log(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -410,7 +410,8 @@ def test_lambda_needs_opt_in(tmp_path, monkeypatch):
 
 def test_unsupported_configs_fail_at_the_forward(tmp_path):
     """tests/test_keras_zoo_ext.py's fail-loudly cases: transposed convs
-    with output_padding, an unknown TFOpLambda function."""
+    with output_padding (in the inference and the training forward), an
+    unknown TFOpLambda function."""
     import tf_keras as tk
 
     from audio_analysis_torch.models.keras_graph import _tf_op
@@ -422,8 +423,9 @@ def test_unsupported_configs_fail_at_the_forward(tmp_path):
         km(torch.zeros(1, 7, 7, 3))
     with pytest.raises(ValueError, match="unsupported TFOpLambda function"):
         _tf_op("linalg.matmul", "t")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        km.apply_train(None, None, None)
+    params = {k: [torch.from_numpy(a) for a in vs] for k, vs in km.params.items()}
+    with pytest.raises(ValueError, match="output_padding"):
+        km.apply_train(params, torch.zeros(1, 7, 7, 3), torch.Generator())
 
 
 def test_k3_op_layer_tolerates_unknown_config_key(tmp_path, rng):
