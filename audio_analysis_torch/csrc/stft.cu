@@ -20,39 +20,66 @@
 // flips bits at ~5e-5 relative error at 1e-3 of the maximum bin, where a
 // float32 FFT is off by 2-8e-5.
 //
-// Two routes, picked by the wrapper from n_fft alone (ops/melspec.py ::
-// stft_plan, which also sizes the tiles):
+// Four routes, picked by the wrapper from n_fft and the card's shared memory
+// alone (ops/melspec.py :: stft_plan, which also sizes the tiles):
 //
 // * fft: n_fft whose prime factors are 2, 3, 5 and 7 (4096 = 8^4,
-//   4800 = 8^2 * 3 * 5^2, 4410 = 2 * 3^2 * 5 * 7^2). One block of 512
-//   threads owns a tile of TF consecutive frames of one signal and takes
-//   them two at a time as one complex FFT, z = frame_a + i frame_b, staged
-//   from the signal by index (no framed matrix exists in device memory).
-//   The FFT is a mixed-radix Stockham autosort in shared memory: each pass
-//   of radix R reads butterfly j's R points at stride n/R, multiplies them by
-//   their twiddles, takes the R-point DFT in registers (radix 2 and 4 exact,
-//   8 as two radix-4 DFTs and the w8 rotations, 3, 5 and 7 directly with
-//   table constants), and writes them at stride ns (the product of the
-//   earlier radices) into the other buffer, so the result lands in natural
-//   order without a bit-reversal pass. The radix sequence (8s first) and the
-//   float64 cos/sin table (built in float64 on the host) come from the
-//   wrapper. Each block copies a two-level table from it into shared memory
-//   (e^{-2 pi i 64 h / n} and e^{-2 pi i l / n}, l < 64: 2 KB at n 4096), and
-//   a twiddle is the product of two entries, one rounding from the table's
-//   value, never advanced by a recurrence: the FFT stays near 1e-15
-//   relative. The two spectra are split with
+//   4800 = 8^2 * 3 * 5^2, 4410 = 2 * 3^2 * 5 * 7^2) and whose two buffers
+//   fit. One block of 512 threads owns a tile of TF consecutive frames of
+//   one signal and takes them two at a time as one complex FFT, z = frame_a + i frame_b,
+//   staged from the signal by index (no framed matrix exists in device
+//   memory). The FFT is a mixed-radix Stockham autosort in shared memory:
+//   each pass of radix R reads butterfly j's R points at stride n/R,
+//   multiplies them by their twiddles, takes the R-point DFT in registers
+//   (radix 2 and 4 exact, 8 as two radix-4 DFTs and the w8 rotations, 3, 5
+//   and 7 directly with table constants), and writes them at stride ns (the
+//   product of the earlier radices) into the other buffer, so the result
+//   lands in natural order without a bit-reversal pass. The radix sequence
+//   (8s first) and the float64 cos/sin table (built in float64 on the host)
+//   come from the wrapper. Each block copies a two-level table from it into
+//   shared memory (e^{-2 pi i 64 h / n} and e^{-2 pi i l / n}, l < 64: 2 KB
+//   at n 4096), and a twiddle is the product of two entries, one rounding
+//   from the table's value, never advanced by a recurrence: the FFT stays
+//   near 1e-15 relative. The two spectra are split with
 //   X_a[k] = (Z[k] + conj Z[n-k]) / 2 and X_b[k] = (Z[k] - conj Z[n-k]) / 2i.
-//   Pairing leaves rounding residue of a non-zero partner in an all-zero
-//   frame, so staging flags each frame's non-zero samples block-wide and an
-//   all-zero frame is written as exact zeros. |X|^power goes into a float32
-//   tile in shared memory: stft_mag's [bins][TF + 1] tile (padded against
-//   bank conflicts) is written out as rows of TF contiguous frames (32 bytes
-//   at TF 8); stft_mel sums its [TF][bins] tile over each filter's support.
-// * direct: any other n_fft (4400 = 2^4 * 5^2 * 11, for one). Each thread
-//   owns one bin at a time and walks the TF staged frames with float64 FMAs,
-//   its twiddle advanced by a rotation and re-read exactly from the table
-//   every RESYNC samples (drift below 1e-13 relative): 4 * bins * n_fft
-//   operations per frame, about 270x the FFT's at n_fft 4096.
+//   Pairing leaves
+//   rounding residue of a non-zero partner in an all-zero frame, so staging
+//   flags each frame's non-zero samples block-wide and an all-zero frame is
+//   written as exact zeros. |X|^power goes into a float32 tile in shared
+//   memory: stft_mag's [bins][TF + 1] tile (padded against bank conflicts) is
+//   written out as rows of TF contiguous frames (32 bytes at TF 8); stft_mel
+//   sums its [TF][bins] tile over each filter's support.
+// * fft1: the same FFT in one complex buffer, for an n_fft whose two buffers
+//   do not fit (8192) or with a prime factor from 11 to 61
+//   (4400 = 8 * 2 * 5^2 * 11, 832 = 8^2 * 13, 8704 = 8^3 * 17). Radix 11 and 13 take the
+//   pairs r, R - r (sums and differences, half the products), an odd prime up
+//   to 61 a generic pass: each output the R-term sum of its inputs, each
+//   times one twiddle from the table. Staging writes sample i at the position
+//   the host's digit-reversal table gives it, and the passes are the in-place
+//   Cooley-Tukey passes of the same plan: butterfly (g, jm) of the pass with
+//   stride ns reads and writes the R points g R ns + jm + r ns, with the
+//   Stockham pass's twiddles and butterflies, so each output is the same
+//   arithmetic and lands in natural order. The generic prime pass holds its
+//   outputs in registers across a barrier (n_fft <= HELD * 512). stft_mag
+//   has no tile and writes each pair's bins straight to the output; stft_mel
+//   keeps its [TF][bins] tile.
+// * bluestein: an n_fft with a prime factor above 61 whose
+//   padded length M (the smallest product of 2, 3, 5 and 7 at least
+//   2 n_fft - 1) fits one buffer (4099, for one). z_k times the chirp
+//   e^{-i pi k^2 / n} (k^2 mod 2n, one entry of a host table), zero-padded to
+//   M; the forward FFT by decimation in frequency (the in-place passes
+//   transposed: butterfly first, then the twiddles, last pass first), which
+//   leaves the spectrum in the digit-reversed order; times the FFT of the
+//   conjugate chirp (built in float64 on the host, divided by M, stored in
+//   that order) and conjugated; the in-place passes again, which restore the
+//   natural order; conjugated and times the chirp: the n-point DFT of z,
+//   split as above.
+// * direct: any other n_fft that fits (n_fft 6301 for stft_mag, for one).
+//   Each thread owns one bin at a time and walks the TF staged frames with
+//   float64 FMAs, its twiddle advanced by a rotation and re-read exactly
+//   from the table every RESYNC samples (drift below 1e-13 relative):
+//   4 * bins * n_fft operations per frame, about 270x the FFT's at n_fft
+//   4096.
 //
 // What bounds them: as functions, the larger of their bytes (the PCM read
 // once, the output written once, over 3.35 TB/s) and the operations of a
@@ -67,7 +94,11 @@
 // distinct banks), the twiddle table and the tile fill the SM's shared
 // memory, so a pass's shared-memory and twiddle reads, the staging's reads
 // of the signal and the tile's write-out are not overlapped by another
-// block's work; a barrier ends each pass. No atomics: every output is
+// block's work; a barrier ends each pass. The one-buffer routes hold the
+// same latency-bound shape: fft1 does the fft route's passes in place
+// (at 8192, 2x the points of 4096 and one more pass); bluestein does two
+// FFTs of M >= 2 n_fft - 1 points and two pointwise passes a pair, ~4x the
+// fft route's work at the same n_fft. No atomics: every output is
 // written once by one thread, so two launches agree bit for bit.
 
 #include <cuda_runtime.h>
@@ -75,9 +106,11 @@
 namespace {
 
 constexpr int THREADS = 256;      // direct route
-constexpr int FFT_THREADS = 512;  // fft route
+constexpr int FFT_THREADS = 512;  // fft, fft1 and bluestein routes
 constexpr int RESYNC = 64;        // samples between exact twiddle reloads (direct)
 constexpr int TW_LO = 64;         // low level of the fft route's twiddle table
+constexpr int HELD = 26;          // outputs a thread holds in the in-place generic pass
+enum Route { FFT1 = 1, BLUESTEIN = 2 };  // the one-buffer routes
 
 // Entries of each half (cos, sin) of the fft route's two-level twiddle table.
 __host__ __device__ constexpr int twiddle_rows(int n) {
@@ -128,28 +161,74 @@ __device__ __forceinline__ void twiddle(double& re, double& im, double c, double
   re = r;
 }
 
+// R = 11, 13: with s_r = v_r + v_{R-r} and d_r = v_r - v_{R-r} (r <= H),
+// A = v_0 + sum_r s_r cos(2 pi r k / R) and B = sum_r d_r sin(2 pi r k / R),
+// V[k] = A - i B and V[R - k] = A + i B: half the products of the direct
+// sum, and only the constants q <= H.
+template <int R>
+__device__ __forceinline__ void butterfly_pairs(double (&vr)[R], double (&vi)[R],
+                                                const double (&wc)[R], const double (&ws)[R]) {
+  constexpr int H = (R - 1) / 2;
+  double sr[H], si[H], dr[H], di[H];
+  const double v0r = vr[0], v0i = vi[0];
+  double tr = v0r, ti = v0i;
+#pragma unroll
+  for (int r = 1; r <= H; ++r) {
+    sr[r - 1] = vr[r] + vr[R - r];
+    si[r - 1] = vi[r] + vi[R - r];
+    dr[r - 1] = vr[r] - vr[R - r];
+    di[r - 1] = vi[r] - vi[R - r];
+    tr += sr[r - 1];
+    ti += si[r - 1];
+  }
+  vr[0] = tr;
+  vi[0] = ti;
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    double ar = v0r, ai = v0i, br = 0.0, bi = 0.0;
+#pragma unroll
+    for (int r = 1; r <= H; ++r) {
+      const int q = (r * k) % R;
+      const double c = q <= H ? wc[q] : wc[R - q];
+      const double s = q <= H ? ws[q] : -ws[R - q];
+      ar = fma(sr[r - 1], c, ar);
+      ai = fma(si[r - 1], c, ai);
+      br = fma(dr[r - 1], s, br);
+      bi = fma(di[r - 1], s, bi);
+    }
+    vr[k] = ar + bi;
+    vi[k] = ai - br;
+    vr[R - k] = ar - bi;
+    vi[R - k] = ai + br;
+  }
+}
+
 // R-point DFT in place, V[k] = sum_r v[r] w^{rk}, w = e^{-2 pi i / R};
-// wc/ws[q] = cos/sin(2 pi q / R). Odd R: directly.
+// wc/ws[q] = cos/sin(2 pi q / R). Odd R: directly (11 and 13 by pairs).
 template <int R>
 __device__ __forceinline__ void butterfly(double (&vr)[R], double (&vi)[R],
                                           const double (&wc)[R], const double (&ws)[R]) {
-  double yr[R], yi[R];
+  if constexpr (R >= 11) {
+    butterfly_pairs<R>(vr, vi, wc, ws);
+  } else {
+    double yr[R], yi[R];
 #pragma unroll
-  for (int k = 0; k < R; ++k) {
-    double sr = vr[0], si = vi[0];
+    for (int k = 0; k < R; ++k) {
+      double sr = vr[0], si = vi[0];
 #pragma unroll
-    for (int r = 1; r < R; ++r) {
-      const int q = (r * k) % R;
-      sr = fma(vr[r], wc[q], fma(vi[r], ws[q], sr));
-      si = fma(vi[r], wc[q], fma(-vr[r], ws[q], si));
+      for (int r = 1; r < R; ++r) {
+        const int q = (r * k) % R;
+        sr = fma(vr[r], wc[q], fma(vi[r], ws[q], sr));
+        si = fma(vi[r], wc[q], fma(-vr[r], ws[q], si));
+      }
+      yr[k] = sr;
+      yi[k] = si;
     }
-    yr[k] = sr;
-    yi[k] = si;
-  }
 #pragma unroll
-  for (int k = 0; k < R; ++k) {
-    vr[k] = yr[k];
-    vi[k] = yi[k];
+    for (int k = 0; k < R; ++k) {
+      vr[k] = yr[k];
+      vi[k] = yi[k];
+    }
   }
 }
 
@@ -269,6 +348,28 @@ __device__ void fft_pass(const double* __restrict__ sr, const double* __restrict
   }
 }
 
+// Output q of butterfly (first, stride) of a pass of odd prime radix R:
+// sum_r v_r e^{-2 pi i r t1 / n}, v_r = (re, im)[pad(first + r stride)], the
+// exponent r t1 mod n kept exactly and each term's twiddle read from the
+// table (twiddle_of). t1 = jm step + q m folds the pass's twiddle
+// e^{-2 pi i r jm step / n} and the DFT's e^{-2 pi i r q / R} into one.
+__device__ __forceinline__ void prime_output(const double* re, const double* im, int first,
+                                             int stride, int R, int t1, int n, int nh,
+                                             const double* tw, double& ar, double& ai) {
+  ar = re[pad(first)];
+  ai = im[pad(first)];
+  int t = 0;
+  for (int r = 1; r < R; ++r) {
+    t += t1;
+    if (t >= n) t -= n;
+    double c, s, vr = re[pad(first + r * stride)], vi = im[pad(first + r * stride)];
+    twiddle_of(tw, nh, t, c, s);
+    twiddle(vr, vi, c, s);
+    ar += vr;
+    ai += vi;
+  }
+}
+
 // The complex FFT of the n points in a (re at a[pad(i)], im at
 // a[padded(n) + pad(i)]), with b as the other buffer of the same size and tw
 // the two-level twiddle table; returns the buffer holding the result.
@@ -294,6 +395,231 @@ __device__ const double* fft(double* a, double* b, const double* tw, int n,
     ns *= r;
   }
   return a;
+}
+
+// ---------------------------------------------------------------------------
+// one-buffer routes (fft1, bluestein)
+// ---------------------------------------------------------------------------
+
+// The in-place pass of radix R with stride ns over the n points of one
+// buffer: butterfly b (b < n/R), g = b / ns, jm = b mod ns, owns the points
+// g R ns + jm + r ns. Decimation in time (DIF false): twiddles
+// e^{-2 pi i r jm step / n} on the inputs, then the R-point DFT, as
+// fft_pass. Decimation in frequency (DIF true, the transpose): the DFT, then
+// the same twiddles on the outputs.
+template <int R, bool DIF>
+__device__ void fft_pass_inplace(double* re, double* im, int n, int ns, const double* tw,
+                                 const double* __restrict__ cs,
+                                 const double* __restrict__ sn) {
+  const int m = n / R;
+  const int step = m / ns;
+  const int nh = (n + TW_LO - 1) / TW_LO;
+  double wc[R], ws[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    wc[q] = __ldg(cs + q * m);
+    ws[q] = __ldg(sn + q * m);
+  }
+  for (int b = threadIdx.x; b < m; b += blockDim.x) {
+    const int g = b / ns, jm = b - g * ns;
+    const int base = g * R * ns + jm;
+    double vr[R], vi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      vr[r] = re[pad(base + r * ns)];
+      vi[r] = im[pad(base + r * ns)];
+    }
+    if (!DIF) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        double c, s;
+        twiddle_of(tw, nh, r * jm * step, c, s);
+        twiddle(vr[r], vi[r], c, s);
+      }
+    }
+    butterfly<R>(vr, vi, wc, ws);
+    if (DIF) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        double c, s;
+        twiddle_of(tw, nh, r * jm * step, c, s);
+        twiddle(vr[r], vi[r], c, s);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      re[pad(base + r * ns)] = vr[r];
+      im[pad(base + r * ns)] = vi[r];
+    }
+  }
+}
+
+// The in-place pass of an odd prime radix R above 13 (decimation in time):
+// each thread computes its outputs o = threadIdx.x + u FFT_THREADS
+// (q = o / m, butterfly o mod m) into registers, then, after a barrier,
+// writes them over the inputs. n <= HELD * FFT_THREADS.
+__device__ void fft_pass_prime_inplace(double* re, double* im, int n, int ns, int R,
+                                       const double* tw) {
+  const int m = n / R;
+  const int step = m / ns;
+  const int nh = (n + TW_LO - 1) / TW_LO;
+  double hr[HELD], hi[HELD];
+#pragma unroll
+  for (int u = 0; u < HELD; ++u) {
+    const int o = threadIdx.x + u * FFT_THREADS;
+    if (o < n) {
+      const int q = o / m, b = o - q * m, g = b / ns, jm = b - g * ns;
+      prime_output(re, im, g * R * ns + jm, ns, R, jm * step + q * m, n, nh, tw, hr[u], hi[u]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < HELD; ++u) {
+    const int o = threadIdx.x + u * FFT_THREADS;
+    if (o < n) {
+      const int q = o / m, b = o - q * m, g = b / ns, jm = b - g * ns;
+      const int d = g * R * ns + jm + q * ns;
+      re[pad(d)] = hr[u];
+      im[pad(d)] = hi[u];
+    }
+  }
+}
+
+// The complex FFT of the n points in a, in place: its input in the
+// digit-reversed order of the plan (fft_positions on the host), its output
+// in natural order. WIDE false builds only the passes of 8, 4, 2, 3, 5 and 7
+// (Bluestein's M); true adds 11, 13 and the generic prime pass (fft1).
+template <bool WIDE>
+__device__ void fft_inplace(double* a, const double* tw, int n, const int* __restrict__ radix,
+                            int n_pass, const double* __restrict__ cs,
+                            const double* __restrict__ sn) {
+  double* ai = a + padded(n);
+  int ns = 1;
+  for (int p = 0; p < n_pass; ++p) {
+    const int r = __ldg(radix + p);
+    switch (r) {
+      case 8: fft_pass_inplace<8, false>(a, ai, n, ns, tw, cs, sn); break;
+      case 4: fft_pass_inplace<4, false>(a, ai, n, ns, tw, cs, sn); break;
+      case 2: fft_pass_inplace<2, false>(a, ai, n, ns, tw, cs, sn); break;
+      case 3: fft_pass_inplace<3, false>(a, ai, n, ns, tw, cs, sn); break;
+      case 5: fft_pass_inplace<5, false>(a, ai, n, ns, tw, cs, sn); break;
+      case 7: fft_pass_inplace<7, false>(a, ai, n, ns, tw, cs, sn); break;
+      default:
+        if constexpr (WIDE) {
+          if (r == 11) fft_pass_inplace<11, false>(a, ai, n, ns, tw, cs, sn);
+          else if (r == 13) fft_pass_inplace<13, false>(a, ai, n, ns, tw, cs, sn);
+          else fft_pass_prime_inplace(a, ai, n, ns, r, tw);
+        }
+        break;
+    }
+    __syncthreads();
+    ns *= r;
+  }
+}
+
+// The transpose of fft_inplace, for radices 8, 4, 2, 3, 5, 7: natural order
+// in, the digit-reversed order out.
+__device__ void fft_inplace_dif(double* a, const double* tw, int n,
+                                const int* __restrict__ radix, int n_pass,
+                                const double* __restrict__ cs, const double* __restrict__ sn) {
+  double* ai = a + padded(n);
+  int ns = n;
+  for (int p = n_pass - 1; p >= 0; --p) {
+    const int r = __ldg(radix + p);
+    ns /= r;
+    switch (r) {
+      case 8: fft_pass_inplace<8, true>(a, ai, n, ns, tw, cs, sn); break;
+      case 4: fft_pass_inplace<4, true>(a, ai, n, ns, tw, cs, sn); break;
+      case 2: fft_pass_inplace<2, true>(a, ai, n, ns, tw, cs, sn); break;
+      case 3: fft_pass_inplace<3, true>(a, ai, n, ns, tw, cs, sn); break;
+      case 5: fft_pass_inplace<5, true>(a, ai, n, ns, tw, cs, sn); break;
+      default: fft_pass_inplace<7, true>(a, ai, n, ns, tw, cs, sn); break;
+    }
+    __syncthreads();
+  }
+}
+
+// What the one-buffer routes read besides the signal and the window.
+struct OneBuffer {
+  const double* cs;   // cos(2 pi j / N), j < N: N = n_fft (fft1) or M (bluestein)
+  const double* sn;   // sin(2 pi j / N)
+  const int* radix;   // the plan of N
+  int n_pass;
+  int m;              // N
+  const int* perm;    // fft1: the position sample i is staged at
+  const double* chc;  // bluestein: cos(pi (k^2 mod 2n) / n), k < n_fft
+  const double* chs;  // bluestein: sin(pi (k^2 mod 2n) / n)
+  const double* bc;   // bluestein: the FFT of the conjugate chirp over M, in DIF order
+  const double* bs;
+};
+
+// Frame ta's (and, when has_b, ta + 1's) sample i, windowed in float32.
+__device__ __forceinline__ void frame_samples(const float* __restrict__ x,
+                                              const float* __restrict__ win, long S, long s,
+                                              int hop, int i, bool has_b, float& va,
+                                              float& vb) {
+  const float w = win[i];
+  va = (s >= 0 && s < S) ? x[s] * w : 0.f;
+  vb = (has_b && s + hop >= 0 && s + hop < S) ? x[s + hop] * w : 0.f;
+}
+
+// stage_pair for the one-buffer routes: fft1 puts sample i at perm[i];
+// bluestein multiplies it by the chirp and zero-fills [n, M). Returns the
+// frames' non-zero flags, as stage_pair.
+template <int ROUTE>
+__device__ int stage_one(double* a, const float* __restrict__ x, const float* __restrict__ win,
+                         long S, int n, int hop, int ta, bool has_b, const OneBuffer& d) {
+  const long s0 = (long)ta * hop - n / 2;
+  const int np = padded(d.m);
+  int nz = 0;
+  for (int i = threadIdx.x; i < d.m; i += blockDim.x) {
+    double zr = 0.0, zi = 0.0;
+    int at = i;
+    if (i < n) {
+      float va, vb;
+      frame_samples(x, win, S, s0 + i, hop, i, has_b, va, vb);
+      nz |= (va != 0.f ? 1 : 0) | (vb != 0.f ? 2 : 0);
+      zr = (double)va;
+      zi = (double)vb;
+      if (ROUTE == FFT1) at = __ldg(d.perm + i);
+      else twiddle(zr, zi, __ldg(d.chc + i), __ldg(d.chs + i));
+    }
+    a[pad(at)] = zr;
+    a[np + pad(at)] = zi;
+  }
+  const int frame_a = __syncthreads_or(nz & 1) ? 1 : 0;
+  const int frame_b = __syncthreads_or(nz & 2) ? 2 : 0;
+  return frame_a | frame_b;
+}
+
+// The n-point DFT of the staged z by Bluestein's chirp product, in place in
+// the buffer of M points; the spectrum ends in a[pad(k)], k < n (imaginary
+// parts at padded(M)).
+__device__ void bluestein(double* a, const double* tw, int n, const OneBuffer& d) {
+  const int np = padded(d.m);
+  fft_inplace_dif(a, tw, d.m, d.radix, d.n_pass, d.cs, d.sn);
+  for (int p = threadIdx.x; p < d.m; p += blockDim.x) {
+    const double xr = a[pad(p)], xi = a[np + pad(p)];
+    const double br = __ldg(d.bc + p), bi = __ldg(d.bs + p);
+    a[pad(p)] = fma(xr, br, -xi * bi);
+    a[np + pad(p)] = -fma(xr, bi, xi * br);  // conjugated
+  }
+  __syncthreads();
+  fft_inplace<false>(a, tw, d.m, d.radix, d.n_pass, d.cs, d.sn);
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    double zr = a[pad(k)], zi = -a[np + pad(k)];  // conjugated
+    twiddle(zr, zi, __ldg(d.chc + k), __ldg(d.chs + k));
+    a[pad(k)] = zr;
+    a[np + pad(k)] = zi;
+  }
+  __syncthreads();
+}
+
+// The pair's spectrum in a, by the route's transform.
+template <int ROUTE>
+__device__ void transform_one(double* a, const double* tw, int n, const OneBuffer& d) {
+  if (ROUTE == FFT1) fft_inplace<true>(a, tw, n, d.radix, d.n_pass, d.cs, d.sn);
+  else bluestein(a, tw, n, d);
 }
 
 // Stages frames ta and ta + 1 (the second only when has_b) of x[S], windowed
@@ -322,17 +648,30 @@ __device__ int stage_pair(double* a, const float* __restrict__ x,
   return (any_a ? 1 : 0) | (any_b ? 2 : 0);
 }
 
-// Splits the pair's spectrum z (layout of fft) and writes
+// Splits the pair's spectrum z (real parts at z[pad(k)], imaginary parts at
+// zi[pad(k)]) and writes
 // |X_a[k]|^power to dst[k * sk] and |X_b[k]|^power to dst[k * sk + sf] for
 // k < bins; a frame flagged all-zero (bit clear in nz) gets exact zeros.
-__device__ void split_pair(const double* z, int n, int bins, float power, int nz,
-                           float* dst, int sk, int sf) {
-  const double* zi = z + padded(n);
+__device__ void split_pair(const double* z, const double* zi, int n, int bins, float power,
+                           int nz, float* dst, int sk, int sf) {
   for (int k = threadIdx.x; k < bins; k += blockDim.x) {
     const int k2 = k ? n - k : 0;
     const double pr = z[pad(k)], pi = zi[pad(k)], qr = z[pad(k2)], qi = zi[pad(k2)];
     dst[k * sk] = (nz & 1) ? power_of(0.5 * (pr + qr), 0.5 * (pi - qi), power) : 0.f;
     dst[k * sk + sf] = (nz & 2) ? power_of(0.5 * (pi + qi), 0.5 * (qr - pr), power) : 0.f;
+  }
+}
+
+// split_pair straight to the output rows of stft_mag: frame a's bin k to
+// dst[k * sk], frame b's to dst[k * sk + 1] when has_b.
+__device__ void split_pair_out(const double* z, const double* zi, int n, int bins, float power,
+                               int nz, float* __restrict__ dst, long sk, bool has_b) {
+  for (int k = threadIdx.x; k < bins; k += blockDim.x) {
+    const int k2 = k ? n - k : 0;
+    const double pr = z[pad(k)], pi = zi[pad(k)], qr = z[pad(k2)], qi = zi[pad(k2)];
+    dst[k * sk] = (nz & 1) ? power_of(0.5 * (pr + qr), 0.5 * (pi - qi), power) : 0.f;
+    if (has_b)
+      dst[k * sk + 1] = (nz & 2) ? power_of(0.5 * (pi + qi), 0.5 * (qr - pr), power) : 0.f;
   }
 }
 
@@ -356,7 +695,7 @@ stft_mag_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
   for (int f = 0; f < nf; f += 2) {
     const int nz = stage_pair(a, xs, win, T, n, hop, t0 + f, f + 1 < nf);
     const double* z = fft(a, b, tw, n, radix, n_pass, cs, sn);
-    split_pair(z, n, bins, power, nz, tile + f, TF + 1, 1);
+    split_pair(z, z + padded(n), n, bins, power, nz, tile + f, TF + 1, 1);
     __syncthreads();
   }
   float* o = out + (long)sig * bins * n_frames + t0;
@@ -389,7 +728,59 @@ stft_mel_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
   for (int f = 0; f < nf; f += 2) {
     const int nz = stage_pair(a, xs, win, S, n, hop, t0 + f, f + 1 < nf);
     const double* z = fft(a, b, tw, n, radix, n_pass, cs, sn);
-    split_pair(z, n, bins, power, nz, pw + f * bins, 1, bins);
+    split_pair(z, z + padded(n), n, bins, power, nz, pw + f * bins, 1, bins);
+    __syncthreads();
+  }
+  mel_epilogue(pw, fb, fb_lo, fb_hi, out, w, t0, nf, n_out, bins, n_mels);
+}
+
+// One-buffer routes. grid (ceil(n_frames / tf), B); out [B, bins, n_frames].
+// tf (frames a block) is an argument here, not a template parameter: no loop
+// is unrolled over it, and one instantiation a route keeps the build short.
+template <int ROUTE>
+__global__ void __launch_bounds__(FFT_THREADS, 1)
+stft_mag_one_kernel(const float* __restrict__ x, const float* __restrict__ win, OneBuffer d,
+                    float* __restrict__ out, long T, int n, int hop, int n_frames, int bins,
+                    float power, int tf) {
+  extern __shared__ double smem[];
+  double* a = smem;                        // one complex buffer of d.m points
+  double* tw = smem + 2 * padded(d.m);     // two-level twiddle table of d.m
+  const int sig = blockIdx.y;
+  const int t0 = blockIdx.x * tf;
+  const int nf = min(tf, n_frames - t0);
+  const float* xs = x + (long)sig * T;
+  float* o = out + (long)sig * bins * n_frames + t0;
+  load_twiddles(tw, d.m, d.cs, d.sn);
+  for (int f = 0; f < nf; f += 2) {
+    const bool has_b = f + 1 < nf;
+    const int nz = stage_one<ROUTE>(a, xs, win, T, n, hop, t0 + f, has_b, d);
+    transform_one<ROUTE>(a, tw, n, d);
+    split_pair_out(a, a + padded(d.m), n, bins, power, nz, o + f, n_frames, has_b);
+    __syncthreads();
+  }
+}
+
+// One-buffer routes. grid (ceil(n_out / tf), n_windows); out
+// [n_windows, n_mels, n_out]; tf as stft_mag_one_kernel's
+template <int ROUTE>
+__global__ void __launch_bounds__(FFT_THREADS, 1)
+stft_mel_one_kernel(const float* __restrict__ x, const float* __restrict__ win, OneBuffer d,
+                    const float* __restrict__ fb, const int* __restrict__ fb_lo,
+                    const int* __restrict__ fb_hi, float* __restrict__ out, long S, int n,
+                    int hop, int n_out, int bins, int n_mels, float power, int tf) {
+  extern __shared__ double smem[];
+  double* a = smem;
+  double* tw = smem + 2 * padded(d.m);
+  float* pw = (float*)(tw + 2 * twiddle_rows(d.m));  // [tf, bins] |X|^power
+  const int w = blockIdx.y;
+  const int t0 = blockIdx.x * tf;
+  const int nf = min(tf, n_out - t0);
+  const float* xs = x + (long)w * S;
+  load_twiddles(tw, d.m, d.cs, d.sn);
+  for (int f = 0; f < nf; f += 2) {
+    const int nz = stage_one<ROUTE>(a, xs, win, S, n, hop, t0 + f, f + 1 < nf, d);
+    transform_one<ROUTE>(a, tw, n, d);
+    split_pair(a, a + padded(d.m), n, bins, power, nz, pw + f * bins, 1, bins);
     __syncthreads();
   }
   mel_epilogue(pw, fb, fb_lo, fb_hi, out, w, t0, nf, n_out, bins, n_mels);
@@ -514,6 +905,13 @@ size_t fft_smem(int tf, int n_fft, int bins, bool mel) {
          sizeof(float) * (size_t)(mel ? tf : tf + 1) * bins;
 }
 
+// The one-buffer routes: one complex buffer and the table of m points (n_fft,
+// or Bluestein's M), and stft_mel's [tf][bins] tile.
+size_t one_smem(int tf, int m, int bins, bool mel) {
+  return sizeof(double) * (2 * (size_t)padded(m) + 2 * twiddle_rows(m)) +
+         (mel ? sizeof(float) * (size_t)tf * bins : 0);
+}
+
 size_t direct_smem(int tf, int n_fft, int mel_bins) {
   return sizeof(double) * (size_t)tf * n_fft + sizeof(float) * (size_t)tf * mel_bins;
 }
@@ -525,6 +923,35 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStrea
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   kernel<<<grid, threads, smem, st>>>(args...);
   return cudaGetLastError();
+}
+
+// stft_mag on a one-buffer route (8 frames a block: it has no tile)
+template <int ROUTE>
+int mag_one(const float* x, const float* win, const OneBuffer& d, float* out, int B, long T,
+            int n_fft, int hop, int n_frames, float power, int tf, void* stream) {
+  if (B <= 0 || n_frames <= 0) return 0;
+  if (B > 65535 || tf != 8 || (ROUTE == FFT1 && d.m > HELD * FFT_THREADS))
+    return (int)cudaErrorInvalidValue;
+  const int bins = n_fft / 2 + 1;
+  const dim3 grid((n_frames + tf - 1) / tf, B);
+  return (int)launch(stft_mag_one_kernel<ROUTE>, grid, FFT_THREADS,
+                     one_smem(tf, d.m, bins, false), (cudaStream_t)stream, x, win, d, out, T,
+                     n_fft, hop, n_frames, bins, power, tf);
+}
+
+// stft_mel on a one-buffer route (frames a block: 8, 4 or 2)
+template <int ROUTE>
+int mel_one(const float* x, const float* win, const OneBuffer& d, const float* fb,
+            const int* fb_lo, const int* fb_hi, float* out, int n_windows, long S, int n_fft,
+            int hop, int n_out, int bins, int n_mels, float power, int tf, void* stream) {
+  if (n_windows <= 0 || n_out <= 0) return 0;
+  if (n_windows > 65535 || bins <= 0 || bins > n_fft / 2 + 1 ||
+      (tf != 8 && tf != 4 && tf != 2) || (ROUTE == FFT1 && d.m > HELD * FFT_THREADS))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_out + tf - 1) / tf, n_windows);
+  return (int)launch(stft_mel_one_kernel<ROUTE>, grid, FFT_THREADS,
+                     one_smem(tf, d.m, bins, true), (cudaStream_t)stream, x, win, d, fb, fb_lo,
+                     fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power, tf);
 }
 
 }  // namespace
@@ -573,6 +1000,48 @@ int aat_stft_mel_fft(const float* x, const float* win, const double* cs, const d
     case 2: return (int)launch(stft_mel_fft_kernel<2>, grid, FFT_THREADS, smem, st, x, win, cs, sn, radix, n_pass, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// fft1 route: the fft route's arguments and perm [n_fft] int32, the
+// position sample i is staged at; tf 8 (stft_mag) or 8, 4 or 2 (stft_mel).
+int aat_stft_mag_fft1(const float* x, const float* win, const double* cs, const double* sn,
+                      const int* radix, int n_pass, const int* perm, float* out, int B, long T,
+                      int n_fft, int hop, int n_frames, float power, int tf, void* stream) {
+  const OneBuffer d{cs, sn, radix, n_pass, n_fft, perm, nullptr, nullptr, nullptr, nullptr};
+  return mag_one<FFT1>(x, win, d, out, B, T, n_fft, hop, n_frames, power, tf, stream);
+}
+
+int aat_stft_mel_fft1(const float* x, const float* win, const double* cs, const double* sn,
+                      const int* radix, int n_pass, const int* perm, const float* fb,
+                      const int* fb_lo, const int* fb_hi, float* out, int n_windows, long S,
+                      int n_fft, int hop, int n_out, int bins, int n_mels, float power, int tf,
+                      void* stream) {
+  const OneBuffer d{cs, sn, radix, n_pass, n_fft, perm, nullptr, nullptr, nullptr, nullptr};
+  return mel_one<FFT1>(x, win, d, fb, fb_lo, fb_hi, out, n_windows, S, n_fft, hop, n_out, bins,
+                       n_mels, power, tf, stream);
+}
+
+// bluestein route: cs/sn [m] and radix [n_pass] the table and plan of the
+// padded length m; chc/chs [n_fft] the chirp; bc/bs [m] its filter's
+// spectrum in DIF order; the rest as the fft route's.
+int aat_stft_mag_bluestein(const float* x, const float* win, const double* cs, const double* sn,
+                           const int* radix, int n_pass, int m, const double* chc,
+                           const double* chs, const double* bc, const double* bs, float* out,
+                           int B, long T, int n_fft, int hop, int n_frames, float power, int tf,
+                           void* stream) {
+  const OneBuffer d{cs, sn, radix, n_pass, m, nullptr, chc, chs, bc, bs};
+  return mag_one<BLUESTEIN>(x, win, d, out, B, T, n_fft, hop, n_frames, power, tf, stream);
+}
+
+int aat_stft_mel_bluestein(const float* x, const float* win, const double* cs, const double* sn,
+                           const int* radix, int n_pass, int m, const double* chc,
+                           const double* chs, const double* bc, const double* bs,
+                           const float* fb, const int* fb_lo, const int* fb_hi, float* out,
+                           int n_windows, long S, int n_fft, int hop, int n_out, int bins,
+                           int n_mels, float power, int tf, void* stream) {
+  const OneBuffer d{cs, sn, radix, n_pass, m, nullptr, chc, chs, bc, bs};
+  return mel_one<BLUESTEIN>(x, win, d, fb, fb_lo, fb_hi, out, n_windows, S, n_fft, hop, n_out,
+                            bins, n_mels, power, tf, stream);
 }
 
 // direct route, any n_fft; arguments as the fft route's without the radices;

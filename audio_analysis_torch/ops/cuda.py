@@ -37,6 +37,13 @@ _SIGNATURES = {
     "aat_stft_mel_fft": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
                          _F, _I, _P],
     "aat_stft_mag_fft": [_P, _P, _P, _P, _P, _I, _P, _I, _L, _I, _I, _I, _F, _I, _P],
+    "aat_stft_mel_fft1": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
+                          _I, _F, _I, _P],
+    "aat_stft_mag_fft1": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _L, _I, _I, _I, _F, _I, _P],
+    "aat_stft_mel_bluestein": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _L, _I, _I, _I, _I, _I, _F, _I, _P],
+    "aat_stft_mag_bluestein": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                               _I, _F, _I, _P],
     "aat_stft_mel_direct": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _F,
                             _I, _P],
     "aat_stft_mag_direct": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _F, _I, _P],

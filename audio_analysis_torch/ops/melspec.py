@@ -5,16 +5,22 @@ and ``stft_mag`` replaces ``_kernel_dif_mag`` (CUDA source:
 ``csrc/stft.cu``). Each wrapper launches a kernel for a CUDA tensor and
 uses the plain PyTorch version beside it for a CPU tensor; it never falls
 back to the plain version on the card. Each counts its launches in
-``.launches`` and the launches of the direct route in ``.direct_launches``.
+``.launches`` and each route's in ``.fft_launches``, ``.fft1_launches``,
+``.bluestein_launches`` and ``.direct_launches``.
 
 The TPU kernels' z layout, DIF factoring, split-bf16 passes and 320-frame
 cap exist for the MXU and VMEM; here the kernel takes plain float32 windows
 [N, S] and frames them by index with librosa's centre/constant padding.
-``stft_plan`` picks the route from the shape alone: a mixed-radix float64
-FFT in shared memory when n_fft's prime factors are 2, 3, 5 and 7 and a
-tile fits (the radices and twiddle table are built here, ``fft_radices``
-and ``_twiddles_np``), else the direct float64 DFT, which takes any n_fft;
-``ValueError`` when neither fits in the card's shared memory.
+``stft_plan`` picks the route from the shape alone, the first that fits in
+the card's shared memory: ``fft``, a mixed-radix float64 FFT in two
+buffers, when n_fft's prime factors are 2, 3, 5 and 7 (the radices and
+twiddle table are built here, ``fft_radices`` and ``_twiddles_np``);
+``fft1``, the same passes in place in one buffer (staged in the order
+``fft_positions`` gives), also the only route of the radix-11, radix-13 and
+generic prime passes (prime factors up to ``FFT_MAX_PRIME``);
+``bluestein``, for an n_fft with a larger prime factor, the chirp product over a padded length
+``bluestein_size`` in one buffer (``bluestein_np``); else the direct
+float64 DFT, which takes any n_fft; ``ValueError`` when none fits.
 
 Both the kernels and the plain versions window in float32 and take the DFT
 in float64, rounding to float32 at the end. The detection thresholds
@@ -36,6 +42,7 @@ version (``stft_mel_dif_bf16_plain``, ``stft_mel_bf16_plain``), and the
 wrapper counts the direct route's launches in ``.direct_launches``.
 """
 
+import math
 import os
 from functools import lru_cache
 
@@ -47,9 +54,17 @@ from audio_analysis_torch.ops.mel import filterbank_np, mel_support_bins
 from audio_analysis_torch.ops.stft import stft_magnitude
 from audio_analysis_torch.ops.windows import get_window_np
 
-FFT_RADICES = (8, 4, 2, 3, 5, 7)  # the FFT's butterflies, in the order a plan takes them
+TWO_BUFFER_RADICES = (8, 4, 2, 3, 5, 7)  # the fft route's passes
+FFT_RADICES = TWO_BUFFER_RADICES + (11, 13)  # butterflies of their own, in the order a plan takes them
+FFT_MAX_PRIME = 61  # odd primes above 13 up to this one take the generic pass
+WIDE_PRIMES = tuple(p for p in range(17, FFT_MAX_PRIME + 1, 2)
+                    if all(p % d for d in range(3, int(p ** 0.5) + 1, 2)))
+BLUESTEIN_PRIMES = (2, 3, 5, 7)  # Bluestein's padded length is a product of these
 TWIDDLE_LO = 64  # the low level of the kernel's two-level twiddle table
-FFT_TILES = (8, 4, 2)  # frames a block of the fft route, largest that fits first
+FFT_THREADS = 512  # threads a block of the FFT routes
+INPLACE_HELD = 26  # outputs a thread holds in the in-place generic pass
+FFT_TILES = (8, 4, 2)  # frames a block of the fft routes, largest that fits first
+ONE_MAG_TILES = (8,)  # the one-buffer stft_mag has no tile: 8 frames a block
 DIRECT_TILES = (8, 4, 2, 1)  # the same for the direct route
 SMEM_OPTIN_H100 = 232448  # bytes of shared memory a block may opt in to on an H100
 
@@ -62,15 +77,67 @@ def _twiddles_np(n_fft: int):
 
 
 def fft_radices(n_fft: int):
-    """The FFT route's passes: radices from ``FFT_RADICES`` (8s first, then
-    4, 2, 3, 5, 7) whose product is n_fft, or None when n_fft has another
-    prime factor."""
+    """The FFT routes' passes: radices from ``FFT_RADICES`` (8s first, then
+    4, 2, 3, 5, 7, 11, 13), then the primes of ``WIDE_PRIMES``, whose
+    product is n_fft; None when n_fft has a prime factor above
+    ``FFT_MAX_PRIME``."""
     out, n = [], int(n_fft)
-    for r in FFT_RADICES:
+    for r in FFT_RADICES + WIDE_PRIMES:
         while n > 1 and n % r == 0:
             out.append(r)
             n //= r
     return tuple(out) if n == 1 else None
+
+
+def fft_positions(radices):
+    """Where the in-place passes of ``radices`` want sample s staged so that
+    the spectrum comes out in natural order (the mixed-radix digit
+    reversal): the last pass combines the subsequences s mod R_last, each
+    laid out the same way one level down."""
+    n = math.prod(radices)
+    s = np.arange(n)
+    pos = np.zeros(n, np.int64)
+    span = n
+    for r in reversed(radices):
+        span //= r
+        pos += (s % r) * span
+        s //= r
+    return pos
+
+
+def bluestein_size(n_fft: int) -> int:
+    """Bluestein's padded length: the smallest product of
+    ``BLUESTEIN_PRIMES`` at least 2 n_fft - 1 (no wrap of the chirp
+    product)."""
+    m = 2 * int(n_fft) - 1
+    while True:
+        r = m
+        for p in BLUESTEIN_PRIMES:
+            while r % p == 0:
+                r //= p
+        if r == 1:
+            return m
+        m += 1
+
+
+@lru_cache(maxsize=8)
+def bluestein_np(n_fft: int):
+    """(chc, chs [n_fft], bc, bs [M]) float64: the chirp cos/sin(pi k^2 / n)
+    with k^2 taken mod 2n (exact integers), and the FFT of the conjugate
+    chirp laid out circularly over M = ``bluestein_size(n_fft)``, divided
+    by M and stored at ``fft_positions`` (the order the forward pass by
+    decimation in frequency leaves its spectrum in)."""
+    n, m = int(n_fft), bluestein_size(n_fft)
+    k = np.arange(n, dtype=np.int64)
+    ang = np.pi * ((k * k) % (2 * n)) / n
+    chc, chs = np.cos(ang), np.sin(ang)
+    conj_chirp = chc + 1j * chs
+    b = np.zeros(m, np.complex128)
+    b[:n] = conj_chirp
+    b[m - n + 1:] = conj_chirp[1:][::-1]
+    spec = np.empty(m, np.complex128)
+    spec[fft_positions(fft_radices(m))] = np.fft.fft(b) / m
+    return chc, chs, spec.real.copy(), spec.imag.copy()
 
 
 def twiddle_rows(n_fft: int) -> int:
@@ -80,26 +147,47 @@ def twiddle_rows(n_fft: int) -> int:
     return -(-n_fft // TWIDDLE_LO) + TWIDDLE_LO
 
 
+def fft_points(route: str, n_fft: int) -> int:
+    """The points of a route's FFT: Bluestein's padded length, else n_fft."""
+    return bluestein_size(n_fft) if route == "bluestein" else int(n_fft)
+
+
 def stft_smem(route: str, n_fft: int, bins: int, tf: int, mel: bool) -> int:
     """Shared memory of one block, in bytes, as ``csrc/stft.cu`` sizes it:
     the fft route holds two complex float64 buffers of n_fft points (one
     spare double after every 8), the twiddle table and a float32 tile of
-    bins x tf frames (rows of tf + 1 for ``stft_mag``); the direct route tf
-    float64 frames, and for the mel kernel a tile of tf x bins."""
+    bins x tf frames (rows of tf + 1 for ``stft_mag``); fft1 and bluestein
+    one buffer and the table of n_fft or M points and, for the mel kernel
+    only, a tile of tf x bins; the direct route tf float64 frames, and for
+    the mel kernel a tile of tf x bins."""
     if route == "fft":
         padded = n_fft + n_fft // 8
         return 8 * (4 * padded + 2 * twiddle_rows(n_fft)) + 4 * (tf if mel else tf + 1) * bins
+    if route in ("fft1", "bluestein"):
+        m = fft_points(route, n_fft)
+        return 8 * (2 * (m + m // 8) + 2 * twiddle_rows(m)) + (4 * tf * bins if mel else 0)
     return 8 * tf * n_fft + (4 * tf * bins if mel else 0)
 
 
 def stft_plan(n_fft: int, bins: int, *, mel: bool, cap: int = SMEM_OPTIN_H100):
     """(route, frames a block) for a DFT of n_fft points whose first ``bins``
-    bins are kept (the mel support, or all 1 + n_fft//2 for ``stft_mag``):
-    ``"fft"`` when ``fft_radices`` takes n_fft and a tile fits in ``cap``
-    bytes of shared memory, else ``"direct"``; ValueError when neither
-    fits."""
-    routes = (("fft", FFT_TILES),) if fft_radices(n_fft) is not None else ()
+    bins are kept (the mel support, or all 1 + n_fft//2 for ``stft_mag``),
+    the first route whose block fits in ``cap`` bytes of shared memory:
+    ``"fft"`` and then ``"fft1"`` when n_fft's radices are all in
+    ``TWO_BUFFER_RADICES``, ``"fft1"`` when ``fft_radices`` takes n_fft
+    with another, else ``"bluestein"``; then ``"direct"``; ValueError
+    when none fits."""
+    one_tiles = FFT_TILES if mel else ONE_MAG_TILES
+    radices = fft_radices(n_fft)
+    if radices is None:
+        routes = (("bluestein", one_tiles),)
+    elif set(radices) <= set(TWO_BUFFER_RADICES):
+        routes = (("fft", FFT_TILES), ("fft1", one_tiles))
+    else:
+        routes = (("fft1", one_tiles),)
     for route, tiles in routes + (("direct", DIRECT_TILES),):
+        if route != "direct" and fft_points(route, n_fft) > INPLACE_HELD * FFT_THREADS:
+            continue
         for tf in tiles:
             if stft_smem(route, n_fft, bins, tf, mel) <= cap:
                 return route, tf
@@ -121,15 +209,42 @@ def _device_consts(key, build, device, dtype=None):
     return got
 
 
-def _dft_consts(n_fft, device):
-    """The Hann window, the twiddle table and the FFT plan's radices (empty
-    on the direct route)."""
+def _dft_consts(n_fft, route, device):
+    """The Hann window, the twiddle table and the radices of the route's
+    FFT (empty on the direct route), then fft1's staging positions, or
+    Bluestein's chirp and filter (``bluestein_np``)."""
     def build():
-        cs, sn = _twiddles_np(n_fft)
-        radix = np.asarray(fft_radices(n_fft) or (), np.int32)
-        return get_window_np("hann", n_fft, periodic=True), cs, sn, radix
+        win = get_window_np("hann", n_fft, periodic=True)
+        m = fft_points(route, n_fft)
+        cs, sn = _twiddles_np(m)
+        radices = fft_radices(m) if route != "direct" else ()
+        head = (win, cs, sn, np.asarray(radices, np.int32))
+        if route == "fft1":
+            return head + (fft_positions(radices).astype(np.int32),)
+        if route == "bluestein":
+            return head + bluestein_np(n_fft)
+        return head
 
-    return _device_consts(("dft", n_fft), build, device)
+    return _device_consts(("dft", n_fft, route), build, device)
+
+
+def _launch_dft(fn, kind, route, lib, head, consts, tail):
+    """Launches ``aat_stft_<kind>_<route>`` with the pointers in `head`,
+    the route's constants and `tail`, and counts the launch on `fn`
+    (``.launches`` and ``.<route>_launches``)."""
+    _, cs, _, radix, *extra = consts
+    if route == "direct":
+        mid = ()
+    else:
+        mid = (radix.data_ptr(), radix.numel())
+    if route == "fft1":
+        mid += (extra[0].data_ptr(),)
+    elif route == "bluestein":
+        mid += (cs.numel(), *(t.data_ptr() for t in extra))
+    rc = getattr(lib, f"aat_stft_{kind}_{route}")(*head, *mid, *tail)
+    cuda.check(rc, fn.__name__)
+    fn.launches += 1
+    setattr(fn, f"{route}_launches", getattr(fn, f"{route}_launches") + 1)
 
 
 def _mel_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk, device):
@@ -195,28 +310,24 @@ def stft_mel(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
     n_fft = int(n_fft)
     n_out = _frame_count(stft_frames(s, n_fft, hop_length), frames)
     dev = windows.device
-    win, cs, sn, radix = _dft_consts(n_fft, dev)
     fb, lo, hi = _mel_consts(int(sr), int(n_mels), float(fmin), float(fmax), n_fft,
                              float(break_freq), bool(htk), dev)
     lib = cuda.library()
     route, tf = stft_plan(n_fft, fb.shape[1], mel=True, cap=lib.aat_smem_optin())
+    consts = _dft_consts(n_fft, route, dev)
+    win, cs, sn = consts[:3]
     out = torch.empty((n, n_mels, n_out), dtype=torch.float32, device=dev)
     ptrs = (windows.data_ptr(), win.data_ptr(), cs.data_ptr(), sn.data_ptr())
     mel_args = (fb.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), n, s, n_fft,
                 int(hop_length), n_out, fb.shape[1], int(n_mels), float(power), tf,
                 cuda.stream_of(windows))
-    if route == "fft":
-        rc = lib.aat_stft_mel_fft(*ptrs, radix.data_ptr(), radix.numel(), *mel_args)
-    else:
-        rc = lib.aat_stft_mel_direct(*ptrs, *mel_args)
-        stft_mel.direct_launches += 1
-    cuda.check(rc, "stft_mel")
-    stft_mel.launches += 1
+    _launch_dft(stft_mel, "mel", route, lib, ptrs, consts, mel_args)
     return out
 
 
 stft_mel.launches = 0
-stft_mel.direct_launches = 0
+stft_mel.fft_launches = stft_mel.fft1_launches = 0
+stft_mel.bluestein_launches = stft_mel.direct_launches = 0
 
 
 def stft_mag_plain(y, *, n_fft, hop_length, power=1.0):
@@ -237,25 +348,21 @@ def stft_mag(y, *, n_fft, hop_length, power=1.0):
     b, t = y.shape
     n_fft = int(n_fft)
     n_frames = stft_frames(t, n_fft, hop_length)
-    win, cs, sn, radix = _dft_consts(n_fft, y.device)
     lib = cuda.library()
     route, tf = stft_plan(n_fft, n_fft // 2 + 1, mel=False, cap=lib.aat_smem_optin())
+    consts = _dft_consts(n_fft, route, y.device)
+    win, cs, sn = consts[:3]
     out = torch.empty((b, n_fft // 2 + 1, n_frames), dtype=torch.float32, device=y.device)
     ptrs = (y.data_ptr(), win.data_ptr(), cs.data_ptr(), sn.data_ptr())
     mag_args = (out.data_ptr(), b, t, n_fft, int(hop_length), n_frames, float(power), tf,
                 cuda.stream_of(y))
-    if route == "fft":
-        rc = lib.aat_stft_mag_fft(*ptrs, radix.data_ptr(), radix.numel(), *mag_args)
-    else:
-        rc = lib.aat_stft_mag_direct(*ptrs, *mag_args)
-        stft_mag.direct_launches += 1
-    cuda.check(rc, "stft_mag")
-    stft_mag.launches += 1
+    _launch_dft(stft_mag, "mag", route, lib, ptrs, consts, mag_args)
     return out
 
 
 stft_mag.launches = 0
-stft_mag.direct_launches = 0
+stft_mag.fft_launches = stft_mag.fft1_launches = 0
+stft_mag.bluestein_launches = stft_mag.direct_launches = 0
 
 
 # ---------------------------------------------------------------------------

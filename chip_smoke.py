@@ -19,9 +19,13 @@
    kernel, the plain version and, where one exists, a single PyTorch call
    computing the same function (CUDA events). The float64 DFTs (stft_mel,
    stft_mag) must agree to max rel 1e-6 and bit for bit across two
-   launches; stft_mag is timed beside torch.stft in float32 and in float64,
-   and once more at n_fft 4400 (2^4 5^2 11), which takes the direct route,
-   as does stft_mel at n_fft 4400 on the classify grid;
+   launches; stft_mag is timed beside torch.stft in float32 and in float64;
+   both are held and timed at the other routes' n_fft, each route
+   asserted: 4400 (2^4 5^2 11, fft1 with a radix-11 pass in place), 8192
+   (fft1, too large for two buffers), the prime 4099 (bluestein) and 6301
+   (direct, the smallest n_fft left to it), stft_mel on the classify grid
+   (with its time over the n_fft 4096 classify's), stft_mag on the whole
+   recording beside float64 torch.stft;
    row_medians and col_medians bit for bit against their plain versions and
    np.median;
    stft_mel_bf16 against the plain version of its route (``dif`` for
@@ -34,12 +38,15 @@
    (``analyse -o FILE --bird-model DIR --seed 0``) in this process on the
    card, cold and then warm, with every kernel's launch count set to 0 just
    before and read just after each run (the float64 DFTs' direct route must
-   not run), then once more under
+   not run, nor the one-buffer routes), then once more under
    torch.profiler (device busy time, idle share, device time by kernel);
    reproduces the committed golden snapshot on the card, and runs the CLI
    once more with ``--device cpu`` (the plain versions) and requires the
    card's result to equal it: signals, length, chirps, cacophony index and
-   labels identical, confidences within 1; holds the packed-word detection
+   labels identical, confidences within 1; runs the CLI with a full-width
+   TuiNet whose metadata sets n_fft 8192 (cold, warm; stft_mel's fft1
+   route at least once, no direct route) and requires the card's result to
+   equal the CPU's the same way; holds the packed-word detection
    morphology against its float max-pool plain version bit for bit on the
    cold run's own [1, 2049, T] spectrogram and medians (device ms of both,
    the host's time to enqueue it, its kernel count);
@@ -573,8 +580,8 @@ def fft_flops(n_fft):
 
 
 def dft_route(n_fft, bins, mel):
-    """The route ("fft" or "direct") the float64 DFT wrappers take on this
-    card for n_fft, keeping the first `bins` bins."""
+    """The route ("fft", "fft1", "bluestein" or "direct") the float64 DFT
+    wrappers take on this card for n_fft, keeping the first `bins` bins."""
     from audio_analysis_torch.ops import cuda as kcuda
     from audio_analysis_torch.ops import melspec as ms
 
@@ -617,6 +624,12 @@ def dft_entry(name, replaces, fn, plain, libraries, out_bytes, in_bytes, frames,
     for key, lib in libraries.items():
         m[key] = time_ms(lib, iters)
     log(json.dumps(m))
+    return m
+
+
+def require_route(m, route):
+    if m["dft_route"] != route:
+        raise AssertionError(f"{m['name']} took the {m['dft_route']} route, not {route}")
     return m
 
 
@@ -758,19 +771,23 @@ def check_kernels(pcm):
         out_bytes=64 * 160 * f_cls * 4, in_bytes=64 * sample * 4, frames=64 * f_cls,
         n_fft=4096, mel_nnz=nnz_cls, route=dft_route(4096, bins_cls, True), iters=5,
     )
-    # the direct route, at an n_fft the FFT does not take (4400 = 2^4 5^2 11)
-    kw_dir = dict(kw_cls, n_fft=4400)
-    nnz_dir = int((filterbank_np(SR, 160, 50.0, 11000.0, 4400, 1750.0, True) != 0).sum())
-    bins_dir = mel_support_bins(SR, 160, 50.0, 11000.0, 4400, 1750.0, True)
-    res["stft_mel[direct, n_fft 4400]"] = dft_entry(
-        "stft_mel[direct, n_fft 4400]",
-        "audio_analysis_tpu/ops/pallas/melspec.py:391 (_kernel_dif)",
-        lambda: ms.stft_mel(win, **kw_dir), lambda: ms.stft_mel_plain(win, **kw_dir), {},
-        out_bytes=64 * 160 * f_cls * 4, in_bytes=64 * sample * 4, frames=64 * f_cls,
-        n_fft=4400, mel_nnz=nnz_dir, route=dft_route(4400, bins_dir, True), iters=2,
-    )
-    if res["stft_mel[direct, n_fft 4400]"]["dft_route"] != "direct":
-        raise AssertionError("stft_mel at n_fft 4400 did not take the direct route")
+    # the other routes on the classify grid: 4400 = 2^4 5^2 11 (a radix-11
+    # pass, in place), 8192 (one buffer), the prime 4099 (Bluestein) and
+    # 6301 (direct: prime, Bluestein's 12800 points do not fit)
+    for n_fft, route, iters in ((4400, "fft1", 5), (8192, "fft1", 5), (4099, "bluestein", 5),
+                                (6301, "direct", 2)):
+        kw_n = dict(kw_cls, n_fft=n_fft)
+        nnz_n = int((filterbank_np(SR, 160, 50.0, 11000.0, n_fft, 1750.0, True) != 0).sum())
+        bins_n = mel_support_bins(SR, 160, 50.0, 11000.0, n_fft, 1750.0, True)
+        name = f"stft_mel[{route}, n_fft {n_fft}]"
+        res[name] = require_route(dft_entry(
+            name, "audio_analysis_tpu/ops/pallas/melspec.py:391 (_kernel_dif)",
+            lambda kw_n=kw_n: ms.stft_mel(win, **kw_n),
+            lambda kw_n=kw_n: ms.stft_mel_plain(win, **kw_n), {},
+            out_bytes=64 * 160 * f_cls * 4, in_bytes=64 * sample * 4, frames=64 * f_cls,
+            n_fft=n_fft, mel_nnz=nnz_n, route=dft_route(n_fft, bins_n, True), iters=iters,
+        ), route)
+        res[name]["vs_classify_4096"] = res[name]["ms"] / res["stft_mel[classify]"]["ms"]
 
     # detection |STFT| of the recording, zeroed past the end-scan's data end
     mx, mn = _batch_chunk_flatness(y, sr=SR, hop_length=hop)
@@ -784,11 +801,12 @@ def check_kernels(pcm):
     fz[:, mask_valid:] = 0.0
     n_frames = 1 + t // hop
     res["stft_mag"] = mag_entry("stft_mag", fz, 4096, hop, iters=5)
-    # the direct route, at an n_fft the FFT does not take (4400 = 2^4 5^2 11)
-    res["stft_mag[direct, n_fft 4400]"] = mag_entry("stft_mag[direct, n_fft 4400]", fz, 4400,
-                                                    hop, iters=2)
-    if res["stft_mag[direct, n_fft 4400]"]["dft_route"] != "direct":
-        raise AssertionError("n_fft 4400 did not take the direct route")
+    # the other routes on the whole recording, each beside float64
+    # torch.stft (library_ms_f64), as on the classify grid
+    for n_fft, route, iters in ((4400, "fft1", 5), (8192, "fft1", 5), (4099, "bluestein", 5),
+                                (6301, "direct", 2)):
+        name = f"stft_mag[{route}, n_fft {n_fft}]"
+        res[name] = require_route(mag_entry(name, fz, n_fft, hop, iters=iters), route)
 
     # medians of the a_max-normalised spectrogram over its valid frames
     spec = ms.stft_mag(fz, n_fft=4096, hop_length=hop)
@@ -953,22 +971,32 @@ def counters():
             "stft_mel_bf16": ms.stft_mel_bf16}
 
 
-DIRECT = ("stft_mel", "stft_mag", "stft_mel_bf16")  # wrappers with a direct route
+# each DFT wrapper's routes counted as .<route>_launches (stft_mel_bf16: its
+# direct route only)
+ROUTES = {"stft_mel": ("fft", "fft1", "bluestein", "direct"),
+          "stft_mag": ("fft", "fft1", "bluestein", "direct"), "stft_mel_bf16": ("direct",)}
 
 
 def reset_counts():
     for name, w in counters().items():
         w.launches = 0
-        if name in DIRECT:
-            w.direct_launches = 0
+        for route in ROUTES.get(name, ()):
+            setattr(w, f"{route}_launches", 0)
 
 
 def read_counts():
-    """Launches per kernel, and per DFT wrapper its direct route's
-    launches under ``<name>.direct``."""
+    """Launches per kernel, and per DFT wrapper each route's launches
+    under ``<name>.<route>``."""
     got = {k: w.launches for k, w in counters().items()}
-    got.update({f"{k}.direct": counters()[k].direct_launches for k in DIRECT})
+    got.update({f"{k}.{route}": getattr(counters()[k], f"{route}_launches")
+                for k, routes in ROUTES.items() for route in routes})
     return got
+
+
+# the one-buffer routes run on no main path (their n_fft are not the main
+# paths'); the n_fft 8192 CLI phase requires stft_mel.fft1
+OFF_MAIN_ROUTES = {"stft_mel.fft1": 0, "stft_mel.bluestein": 0, "stft_mag.fft1": 0,
+                   "stft_mag.bluestein": 0}
 
 
 def require_launches(tag, launches, expect):
@@ -1870,8 +1898,8 @@ def main():
         for knob in ("AAT_FAST", "AAT_PALLAS"):
             os.environ.pop(knob, None)
         exact_path = {"stft_mel": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
-                      "stft_mel_bf16": 0, "stft_mel.direct": 0, "stft_mag.direct": 0,
-                      "stft_mel_bf16.direct": 0}
+                      "stft_mel.fft": 2, "stft_mag.fft": 1, "stft_mel_bf16": 0, "stft_mel.direct": 0, "stft_mag.direct": 0,
+                      "stft_mel_bf16.direct": 0, **OFF_MAIN_ROUTES}
         runs, exact_captured = {}, {}
         for tag in ("cold", "warm"):
             with capture_inputs(exact_captured) if tag == "cold" else contextlib.nullcontext():
@@ -1904,6 +1932,25 @@ def main():
             raise AssertionError(f"the CPU run launched kernels: {cpu_launches}")
         compare_results(gpu_res, cpu_res)
         log("card result equals the CPU result")
+
+        # a full-width TuiNet whose metadata sets n_fft 8192: its classify
+        # frontend runs stft_mel on the one-buffer FFT (fft1); warm against
+        # the CPU
+        t0 = time.perf_counter()
+        nfft_dir = write_tuinet_model(tmp / "tuinet-nfft8192", name="tuinet-nfft8192", n_fft=8192)
+        nfft_path = dict(exact_path, **{"stft_mel.fft": 1, "stft_mel.fft1": 1})
+        for tag in ("cold", "warm"):
+            res8k, wall, nfft_launches = run_cli(wav, nfft_dir, "cuda")
+            log(json.dumps({"cli_run": f"n_fft 8192 {tag}", "device": "cuda", "wall_s": wall,
+                            "launches": nfft_launches, "labels": count_labels([res8k]),
+                            **summary_of(res8k)}))
+            require_launches(f"n_fft 8192 {tag} run", nfft_launches, nfft_path)
+        cpu8k, wall, _ = run_cli(wav, nfft_dir, "cpu")
+        worst = compare_results(res8k, cpu8k, confidence_tol=1)
+        log(json.dumps({"cli_run": "n_fft 8192 cpu", "device": "cpu", "wall_s": wall,
+                        "max_confidence_diff": worst, "phase_s": time.perf_counter() - t0}))
+        if not res8k["species_identify"]:
+            raise AssertionError("the n_fft 8192 TuiNet classified no track")
 
         # recordings at other rates: the resampler, then the exact analyse
         # of the 44.1 kHz WAV (cold, warm, CPU)
@@ -1965,8 +2012,8 @@ def main():
             f"{len(backlog)} x {SECONDS} s WAVs, bird and pre TuiNets (bfloat16)")
         os.environ["AAT_FAST"] = "1"
         fast_path = {"stft_mel_bf16": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
-                     "stft_mel": 0, "stft_mel.direct": 0, "stft_mag.direct": 0,
-                     "stft_mel_bf16.direct": 0}
+                     "stft_mag.fft": 1, "stft_mel": 0, "stft_mel.direct": 0, "stft_mag.direct": 0,
+                     "stft_mel_bf16.direct": 0, **OFF_MAIN_ROUTES}
         batch_runs, captured = {}, {}
         for tag in ("cold", "warm"):
             timer = StageTimer()
@@ -2158,29 +2205,37 @@ def main():
     out = []
     for name, m in kernels.items():
         base = name.split("[")[0]
+        # a DFT row counts its route's launches, <base>.<route>
+        route = m.get("dft_route")
+        key = f"{base}.{route}" if route in ROUTES.get(base, ()) else base
         # each kernel's count on this slice's path where it runs there,
-        # else on the single-recording path
-        n = batch_launches[base] if fast_path[base] else launches[base]
+        # else on the single-recording path; the one-buffer and direct
+        # routes' on the n_fft 8192 CLI
+        if route in ("fft1", "bluestein", "direct"):
+            n = nfft_launches[key]
+        else:
+            n = batch_launches[key] if fast_path[base] else launches[key]
         out.append({k: m.get(k) for k in (
             "name", "route", "source", "replaces")} | {"launches": n} | {
-            "launches_by_path": {"analyse_exact": launches[base],
-                                 "batch_fast": batch_launches[base],
-                                 "backlog_fast": backlog_launches[base],
-                                 "analyse_exact_efficientnet": eff_launches[base],
-                                 "batch_fast_efficientnet": eff_batch_launches[base],
-                                 "analyse_exact_44k1": launches44[base],
-                                 "analyse_exact_bandpass": bp_launches[base],
-                                 "batch_fast_bandpass": bp_batch_launches[base],
-                                 **{path: n[base] for path, n in side_launches.items()}}} | {
+            "launches_by_path": {"analyse_exact": launches[key],
+                                 "analyse_exact_nfft8192": nfft_launches[key],
+                                 "batch_fast": batch_launches[key],
+                                 "backlog_fast": backlog_launches[key],
+                                 "analyse_exact_efficientnet": eff_launches[key],
+                                 "batch_fast_efficientnet": eff_batch_launches[key],
+                                 "analyse_exact_44k1": launches44[key],
+                                 "analyse_exact_bandpass": bp_launches[key],
+                                 "batch_fast_bandpass": bp_batch_launches[key],
+                                 **{path: n[key] for path, n in side_launches.items()}}} | {
             k: m.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "max_rel", "shape")})
-        if base in DIRECT:  # the float64 DFTs: which route, and the direct route's count
+        if base in ROUTES:  # the DFTs: which route, and the direct route's count
             direct = f"{base}.direct"
             out[-1] |= {"dft_route": m["dft_route"], "library_ms_f64": m.get("library_ms_f64"),
                         "direct_launches": batch_launches[direct] if fast_path[base]
                         else launches[direct]}
             out[-1] |= {k: m[k] for k in ("direct_ms", "stft_mel_ms", "max_rel_f64",
-                                          "direct_max_rel_f64") if k in m}
+                                          "direct_max_rel_f64", "vs_classify_4096") if k in m}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"efficientnet_b0": {k: effnet_model[k] for k in (
         "f32_card_vs_cpu_max_abs", "bf16_vs_f32_max_abs", "bf16_vs_f32_mean_abs")} | {

@@ -100,7 +100,7 @@ def main():
     y = torch.from_numpy(make_recording()).to(dev)[None]
     n_fft, hop, tf = 4096, 281, 8
     n_frames = ms.stft_frames(y.shape[1], n_fft, hop)
-    win, cs, sn, radix = ms._dft_consts(n_fft, dev)
+    win, cs, sn, radix = ms._dft_consts(n_fft, "fft", dev)
     out = torch.empty((1, n_fft // 2 + 1, n_frames), device=dev)
     stream = kcuda.stream_of(y)
 

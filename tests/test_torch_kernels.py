@@ -34,18 +34,37 @@ def _max_rel(got, gt):
     return (np.abs(got - gt) / den).max()
 
 
-# (sr, n_fft, hop, n_mels, fmin, fmax, break, samples): the fft route at
-# n_fft 512, 480, 4096 (classify), 4800 (end-scan), 4410 (the end-scan at
-# 44.1 kHz, radix 7) and the odd 441; the direct route at 4400 (prime 11)
+# (sr, n_fft, hop, n_mels, fmin, fmax, break, samples, route): the fft route
+# at n_fft 512, 480, 4096 (classify), 4800 (end-scan), 4410 (the end-scan at
+# 44.1 kHz, radix 7) and the odd 441; fft1 (one buffer) at 4400 (radix 11),
+# 832 (radix 13), 1088 (radix 17, the generic prime pass), 8192 and 11025;
+# bluestein at the prime 4099; the direct route at 6301 (prime; Bluestein's
+# 12800 points do not fit), short
 MEL_GEOMS = {
-    "nfft512": (16000, 512, 160, 40, 50.0, 7000.0, 1750.0, 4000),
-    "nfft480": (4800, 480, 120, 24, 50.0, 2000.0, 1750.0, 4800),
-    "classify": (48000, 4096, 640, 160, 50.0, 11000.0, 1750.0, 144000),
-    "endscan": (48000, 4800, 281, 120, 50.0, 11000.0, 1750.0, 96000),
-    "nfft4410": (44100, 4410, 281, 120, 50.0, 11000.0, 1750.0, 88200),
-    "nfft441": (4410, 441, 110, 24, 50.0, 2000.0, 1750.0, 4410),
-    "direct4400": (44000, 4400, 281, 120, 50.0, 11000.0, 1750.0, 44000),
+    "nfft512": (16000, 512, 160, 40, 50.0, 7000.0, 1750.0, 4000, "fft"),
+    "nfft480": (4800, 480, 120, 24, 50.0, 2000.0, 1750.0, 4800, "fft"),
+    "classify": (48000, 4096, 640, 160, 50.0, 11000.0, 1750.0, 144000, "fft"),
+    "endscan": (48000, 4800, 281, 120, 50.0, 11000.0, 1750.0, 96000, "fft"),
+    "nfft4410": (44100, 4410, 281, 120, 50.0, 11000.0, 1750.0, 88200, "fft"),
+    "nfft441": (4410, 441, 110, 24, 50.0, 2000.0, 1750.0, 4410, "fft"),
+    "nfft4400": (44000, 4400, 281, 120, 50.0, 11000.0, 1750.0, 44000, "fft1"),
+    "nfft832": (16000, 832, 160, 40, 50.0, 7000.0, 1750.0, 8000, "fft1"),
+    "nfft1088": (16000, 1088, 160, 40, 50.0, 7000.0, 1750.0, 8000, "fft1"),
+    "nfft8192": (48000, 8192, 640, 160, 50.0, 11000.0, 1750.0, 144000, "fft1"),
+    "nfft11025": (44100, 11025, 441, 120, 50.0, 11000.0, 1750.0, 88200, "fft1"),
+    "bluestein4099": (48000, 4099, 281, 120, 50.0, 11000.0, 1750.0, 48000, "bluestein"),
+    "direct6301": (48000, 6301, 640, 120, 50.0, 11000.0, 1750.0, 20000, "direct"),
 }
+ROUTE_COUNTS = ("fft_launches", "fft1_launches", "bluestein_launches", "direct_launches")
+
+
+def _route_counts(fn):
+    return tuple(getattr(fn, k) for k in ROUTE_COUNTS)
+
+
+def _counted(before, route):
+    """`before` with one more launch of `route`."""
+    return tuple(c + (k == f"{route}_launches") for c, k in zip(before, ROUTE_COUNTS))
 
 
 @pytest.mark.cuda
@@ -55,15 +74,14 @@ def test_stft_mel_kernel_matches_plain(cuda_device, rng, geom, power):
     """Limit 1e-6 max rel: kernel and plain version take the DFT in float64
     (~1e-15 apart) and round alike to float32, so they differ by at most a
     float32 rounding flip. No atomics, so two launches agree bit for bit."""
-    sr, n_fft, hop, n_mels, fmin, fmax, brk, s = MEL_GEOMS[geom]
+    sr, n_fft, hop, n_mels, fmin, fmax, brk, s, route = MEL_GEOMS[geom]
     wins = torch.from_numpy(rng.randn(3, s).astype(np.float32)).to(cuda_device)
     kw = dict(sr=sr, n_fft=n_fft, hop_length=hop, n_mels=n_mels, fmin=fmin, fmax=fmax,
               break_freq=brk, power=power)
-    direct = ms.fft_radices(n_fft) is None
-    before = (ms.stft_mel.launches, ms.stft_mel.direct_launches)
+    before = (ms.stft_mel.launches, _route_counts(ms.stft_mel))
     got = ms.stft_mel(wins, **kw)
-    assert (ms.stft_mel.launches, ms.stft_mel.direct_launches) == (before[0] + 1,
-                                                                   before[1] + direct)
+    assert (ms.stft_mel.launches, _route_counts(ms.stft_mel)) == (
+        before[0] + 1, _counted(before[1], route))
     ref = ms.stft_mel_plain(wins, **kw)
     assert got.shape == ref.shape == (3, n_mels, ms.stft_frames(s, n_fft, hop))
     assert _max_rel(got, ref) <= 1e-6
@@ -74,21 +92,26 @@ def test_stft_mel_kernel_matches_plain(cuda_device, rng, geom, power):
     assert _max_rel(slaney, ms.stft_mel_plain(wins, htk=False, **kw)) <= 1e-6
 
 
-# (n_fft, hop): 48000 samples give an odd frame count at hop 281 (171)
-MAG_GEOMS = [(4096, 281), (480, 120), (4800, 281), (4410, 256), (512, 128), (441, 100),
-             (4400, 281)]
+# (n_fft, hop, route): 48000 samples give an odd frame count at hop 281
+# (171); fft1 at 4400 (radix 11), 1088 and 8704 (radix 17, the generic pass
+# held across a barrier), 8192 and 11025; bluestein at the primes 1021 and
+# 4099; direct at 6301
+MAG_GEOMS = [(4096, 281, "fft"), (480, 120, "fft"), (4800, 281, "fft"), (4410, 256, "fft"),
+             (512, 128, "fft"), (441, 100, "fft"), (4400, 281, "fft1"), (1088, 160, "fft1"),
+             (8192, 281, "fft1"), (8704, 281, "fft1"), (11025, 441, "fft1"),
+             (1021, 256, "bluestein"),
+             (4099, 281, "bluestein"), (6301, 640, "direct")]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_fft,hop", MAG_GEOMS)
-def test_stft_mag_kernel_matches_plain(cuda_device, rng, n_fft, hop):
+@pytest.mark.parametrize("n_fft,hop,route", MAG_GEOMS)
+def test_stft_mag_kernel_matches_plain(cuda_device, rng, n_fft, hop, route):
     y = torch.from_numpy((0.1 * rng.randn(2, 48000)).astype(np.float32)).to(cuda_device)
     y[1, 30000:] = 0.0  # a silent tail: exact zeros on both sides
-    direct = ms.fft_radices(n_fft) is None
-    before = (ms.stft_mag.launches, ms.stft_mag.direct_launches)
+    before = (ms.stft_mag.launches, _route_counts(ms.stft_mag))
     got = ms.stft_mag(y, n_fft=n_fft, hop_length=hop)
-    assert (ms.stft_mag.launches, ms.stft_mag.direct_launches) == (before[0] + 1,
-                                                                   before[1] + direct)
+    assert (ms.stft_mag.launches, _route_counts(ms.stft_mag)) == (
+        before[0] + 1, _counted(before[1], route))
     ref = ms.stft_mag_plain(y, n_fft=n_fft, hop_length=hop)
     assert got.shape == ref.shape == (2, n_fft // 2 + 1, ms.stft_frames(48000, n_fft, hop))
     assert _max_rel(got, ref) <= 1e-6
