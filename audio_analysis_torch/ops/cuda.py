@@ -13,6 +13,7 @@ returns ``cudaGetLastError()``; ``check`` raises when that is not 0.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -47,7 +48,9 @@ _SIGNATURES = {
     "aat_stft_mel_direct": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _F,
                             _I, _P],
     "aat_stft_mag_direct": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _F, _I, _P],
-    "aat_stft_mel_bf16": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "aat_stft_mel_bf16": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _F, _L,
+                          _I, _P],
+    "aat_stft_mel_bf16_smem": [_I],
     "aat_stft_mel_dif_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _F, _P],
     "aat_row_medians": [_P, _P, _P, _I, _I, _I, _P],
@@ -130,6 +133,12 @@ def build_log() -> str:
     current build, once it exists."""
     p = build_dir() / "build.log"
     return p.read_text() if p.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

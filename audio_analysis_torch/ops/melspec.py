@@ -373,6 +373,40 @@ BF16_K_STEP = 64  # the kernel's K chunk: n_fft is zero-padded to a multiple
 BF16_BIN_TILE = 64  # the kernel's bin tile: the support is zero-padded to a multiple
 BF16_MEL_ROWS = (64, 128, 160, 256)  # mel capacities the kernel is built for
 _PLAIN_STEP = 1 << 24  # framed samples per step of the plain version
+DIRECT_FRAMES = 128  # frames (rows) a work item of the direct kernel, 64 a consumer warpgroup
+DIRECT_STAGES = 4  # the direct kernel's ring of K chunks
+
+
+def direct_classes(hop: int) -> int:
+    """P = 8 / gcd(hop, 8), the direct kernel's frame classes t % P: copy c
+    of a window, shifted by c * gcd(hop, 8) samples, holds frame t (element
+    t * hop of the padded window) 16-byte aligned for c = (t * hop % 8) /
+    gcd(hop, 8), and the frames of one class lie P * hop samples apart, a
+    multiple of 16 bytes: a tensor map's stride, so one TMA box fetches
+    them."""
+    return 8 // math.gcd(int(hop), 8)
+
+
+def direct_tiles(n_out: int, n_fft: int, hop: int) -> tuple:
+    """(n_tiles, lrow) of the direct kernel, whose work item takes 128
+    frames of one of the P classes: n_tiles = ceil(ceil(n_out / P) / 128)
+    tiles a class, and lrow, the row of a window's copy, holds every frame
+    of every tile (a multiple of 8). The pre-pass's scratch is [n_windows,
+    P, lrow] bf16: P bf16 copies of each window."""
+    p = direct_classes(hop)
+    tiles = -(-(-(-int(n_out) // p)) // DIRECT_FRAMES)
+    return tiles, -(-((p * tiles * DIRECT_FRAMES - 1) * int(hop) + int(n_fft)) // 8) * 8
+
+
+def direct_smem(mel_rows: int) -> int:
+    """Shared memory of one direct block, in bytes, as ``csrc/stft_bf16.cu``
+    sizes it: 1024 bytes to align the tiles, the ring (a stage holds the
+    frames [128 x 64] and Wr, Wi [64 + 64 x 64], bf16), two mel tiles
+    [mel_rows x 64] bf16 and the stages' and mel tiles' full and empty
+    barriers."""
+    stage = DIRECT_FRAMES * BF16_K_STEP * 2 + 2 * BF16_BIN_TILE * BF16_K_STEP * 2
+    return (1024 + DIRECT_STAGES * stage + 2 * int(mel_rows) * BF16_BIN_TILE * 2
+            + 8 * (2 * DIRECT_STAGES + 4))
 
 
 def _bf16_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk, device):
@@ -669,13 +703,19 @@ def stft_mel_bf16(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
             ct.shape[1], int(hop_length), n_out, nb, bl, melt.shape[0], int(n_mels),
             float(power), cuda.stream_of(windows),
         )
+        stft_mel_bf16.dif_launches += 1
     else:
         wr, wi, melt, _ = _bf16_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk,
                                        windows.device)
+        hop = int(hop_length)
+        _, lrow = direct_tiles(n_out, n_fft, hop)
+        xb = torch.empty((n, direct_classes(hop), lrow), dtype=torch.bfloat16,
+                         device=windows.device)
         rc = lib.aat_stft_mel_bf16(
-            windows.data_ptr(), wr.data_ptr(), wi.data_ptr(), melt.data_ptr(), out.data_ptr(),
-            n, s, int(n_fft), wr.shape[1], int(hop_length), n_out, wr.shape[0], melt.shape[0],
-            int(n_mels), float(power), cuda.stream_of(windows),
+            windows.data_ptr(), wr.data_ptr(), wi.data_ptr(), melt.data_ptr(), xb.data_ptr(),
+            out.data_ptr(), n, s, int(n_fft), wr.shape[1], hop, n_out, wr.shape[0],
+            melt.shape[0], int(n_mels), float(power), lrow, cuda.sm_count(windows.device),
+            cuda.stream_of(windows),
         )
         stft_mel_bf16.direct_launches += 1
     cuda.check(rc, "stft_mel_bf16")
@@ -684,4 +724,4 @@ def stft_mel_bf16(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
 
 
 stft_mel_bf16.launches = 0
-stft_mel_bf16.direct_launches = 0
+stft_mel_bf16.dif_launches = stft_mel_bf16.direct_launches = 0

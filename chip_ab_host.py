@@ -4,18 +4,20 @@ in turns on one GPU.
 
     python3 chip_ab_host.py TREE_A TREE_B [--runs 9]
 
-Runs four turns, A B B A, each in a fresh process with that checkout first
-on sys.path: the process builds the checkout's kernels and writes its
-chip_smoke.py fixtures (a seeded 60 s WAV and a full-width float32 TuiNet;
-8 seeded 60 s WAVs with a bird and a pre-model TuiNet in bfloat16), runs the
-analyse CLI at the exact level once cold and ``--runs`` times warm, then the
-``AAT_FAST=1`` batch CLI (8 x 60 s) once cold and ``--runs`` times warm,
-then writes the seeded EfficientNetB0 fixture and times its forward alone
-on a [64, 160, 226, 3] grid in float32 and bfloat16 (ms a forward over 10,
-CUDA events, ``--runs`` times) and the exact analyse CLI with it once cold
-and ``--runs`` times warm, and prints one JSON line with every warm time. The last line gives, per
-tree, the median of its warm samples over both its turns. Host-clock times:
-compare two trees only within one call.
+Runs eight turns, A B B A A B B A (warm walls of one tree differ by tens
+of ms a batch between processes, more than four turns resolve), each in a
+fresh process with that checkout first on sys.path: the process builds the
+checkout's kernels and writes its chip_smoke.py fixtures (a seeded 60 s
+WAV and a full-width float32 TuiNet; 8 seeded 60 s WAVs with a bird and a
+pre-model TuiNet in bfloat16), runs the analyse CLI at the exact level once cold and
+``--runs`` times warm, then the ``AAT_FAST=1`` batch CLI (8 x 60 s) once
+cold and ``--runs`` times warm, then writes the seeded EfficientNetB0
+fixture and times its forward alone on a [64, 160, 226, 3] grid in float32
+and bfloat16 (ms a forward over 10, CUDA events, ``--runs`` times) and the
+exact analyse CLI with it once cold and ``--runs`` times warm, and prints
+one JSON line with every warm time. The last line gives, per tree, the
+median of its warm samples over all its turns. Host-clock times: compare
+two trees only within one call.
 """
 
 import argparse
@@ -81,7 +83,7 @@ def main():
     trees = [str(Path(t).resolve()) for t in (args.tree_a, args.tree_b)]
     samples = {t: {k: [] for k in ("exact_warm_s", "batch_warm_s", "effnet_f32_ms",
                                    "effnet_bf16_ms", "effnet_exact_warm_s")} for t in trees}
-    for tree in (trees[0], trees[1], trees[1], trees[0]):
+    for tree in (trees[0], trees[1], trees[1], trees[0]) * 2:
         out = subprocess.run([sys.executable, "-c", TURN, tree, str(args.runs)], cwd=tree,
                              capture_output=True, text=True, timeout=900)
         if out.returncode != 0:

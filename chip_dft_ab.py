@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""The float64 DFT kernels' main-path plans in two checkouts, on one GPU:
-bit for bit, and timed in turns.
+"""The DFT kernels' main-path plans in two checkouts, on one GPU: bit for
+bit, and timed in turns.
 
     python3 chip_dft_ab.py TREE_A TREE_B
 
-Builds ``audio_analysis_torch/csrc/stft.cu`` of each checkout into its own
-library (one nvcc each, started together), then drives the fft route's
-entry points of both (``aat_stft_mag_fft``, ``aat_stft_mel_fft``: the same
-C interface in both) with this checkout's host tables, on the inputs the
-main paths give them: the seeded 60 s recording of chip_smoke.py (the
-detection |STFT| at n_fft 4096 and 4410, and the end-scan at 4800), 64
-normalised 3 s windows of it (the classify frontend at 4096), and eight
-recordings silent from their own points (the fast batch's |STFT|). For each
-shape it requires both outputs equal bit for bit and times the kernel of
-each tree in turns, A B B A, 10 launches a turn after a warm-up (CUDA
+Builds ``audio_analysis_torch/csrc/stft.cu`` and ``stft_bf16.cu`` of each
+checkout into its own libraries (one nvcc each, all started together), then
+drives the float64 fft route's entry points of both (``aat_stft_mag_fft``,
+``aat_stft_mel_fft``) and the fast level's dif route
+(``aat_stft_mel_dif_bf16``), each with the same C interface in both, with
+this checkout's host tables, on the inputs the main paths give them: the
+seeded 60 s recording of chip_smoke.py (the detection |STFT| at n_fft 4096
+and 4410, and the end-scan at 4800), 64 normalised 3 s windows of it (the
+classify frontend at 4096), and eight recordings silent from their own
+points (the fast batch's |STFT| and its end-scan on the dif route). For
+each shape it requires both outputs equal bit for bit and times the kernel
+of each tree in turns, A B B A, 10 launches a turn after a warm-up (CUDA
 events). Prints one JSON line a shape, then the card's name and power
 limit.
 """
@@ -29,33 +31,37 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 
 
+ENTRIES = {"stft.cu": ("aat_stft_mag_fft", "aat_stft_mel_fft"),
+           "stft_bf16.cu": ("aat_stft_mel_dif_bf16",)}
+
+
 def build(trees, out_dir):
-    """{tree: (aat_stft_mag_fft, aat_stft_mel_fft)} from each tree's stft.cu."""
+    """{tree: (aat_stft_mag_fft, aat_stft_mel_fft, aat_stft_mel_dif_bf16)}
+    from each tree's stft.cu and stft_bf16.cu."""
     from audio_analysis_torch.ops import cuda as kcuda
 
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for i, tree in enumerate(trees):
-        so = out_dir / f"stft_{i}.so"
-        cmd = [kcuda.nvcc(), *kcuda.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-               "-shared", str(Path(tree) / "audio_analysis_torch" / "csrc" / "stft.cu"),
-               "-o", str(so)]
-        procs.append((tree, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True)))
-    fns = {}
-    for tree, so, proc in procs:
+        for source in ENTRIES:
+            so = out_dir / f"{Path(source).stem}_{i}.so"
+            cmd = [kcuda.nvcc(), *kcuda.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                   "-shared", str(Path(tree) / "audio_analysis_torch" / "csrc" / source),
+                   "-o", str(so)]
+            procs.append((tree, source, so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    fns = {tree: [] for tree in trees}
+    for tree, source, so, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {tree}:\n{log}")
+            raise RuntimeError(f"nvcc failed on {tree}'s {source}:\n{log}")
         lib = ctypes.CDLL(str(so))
-        pair = []
-        for name in ("aat_stft_mag_fft", "aat_stft_mel_fft"):
+        for name in ENTRIES[source]:
             fn = getattr(lib, name)
             fn.argtypes = kcuda._SIGNATURES[name]
             fn.restype = ctypes.c_int
-            pair.append(fn)
-        fns[tree] = tuple(pair)
-    return fns
+            fns[tree].append(fn)
+    return {tree: tuple(f) for tree, f in fns.items()}
 
 
 def main():
@@ -116,6 +122,21 @@ def main():
             return out
         return run
 
+    def dif_call(fn, x, n_fft, hop, n_mels, power, frames=None):
+        n, s = x.shape
+        n_out = frames or 1 + s // hop
+        win, twc, tws, ct, st, melt, levels, nb, bl = ms._dif_consts(
+            SR, n_mels, 50.0, 11000.0, n_fft, 1750.0, True, dev)
+        out = torch.empty((n, n_mels, n_out), device=dev)
+
+        def run():
+            kcuda.check(fn(x.data_ptr(), win.data_ptr(), twc.data_ptr(), tws.data_ptr(),
+                           ct.data_ptr(), st.data_ptr(), melt.data_ptr(), out.data_ptr(), n, s,
+                           n_fft, levels, ct.shape[1], hop, n_out, nb, bl, melt.shape[0],
+                           n_mels, power, stream), "stft_mel_bf16 dif (A/B)")
+            return out
+        return run
+
     chunk = SR // 281
     end_frames = ((1 + rec.shape[1] // 281) // chunk) * chunk
     shapes = {
@@ -126,6 +147,10 @@ def main():
                                                                         160, 2.0),
         "stft_mel n_fft 4800 end-scan [1, 2.88M]": lambda f: mel_call(f[1], rec, 4800, 281, 120,
                                                                       1.0, end_frames),
+        "stft_mel_bf16 dif n_fft 4096 classify [64, 144000]": lambda f: dif_call(
+            f[2], grid, 4096, 640, 160, 2.0),
+        "stft_mel_bf16 dif n_fft 4800 end-scan batch [8, 2.88M]": lambda f: dif_call(
+            f[2], batch, 4800, 281, 120, 1.0, end_frames),
     }
     for tag, make in shapes.items():
         runs = {tree: make(fns[tree]) for tree in trees}

@@ -29,11 +29,12 @@
    row_medians and col_medians bit for bit against their plain versions and
    np.median;
    stft_mel_bf16 against the plain version of its route (``dif`` for
-   n_fft % 8 == 0, ``direct`` for n_fft 500) to max rel 1e-2 and bit for bit
-   across two launches, with its max rel against the float64 plain version
-   for information, and at classify [64, 144000] and the end-scan
-   [1, 2.88M] timed beside the direct route at the same shape
-   (AAT_PALLAS_ALG=matmul) and the float64 FFT ``stft_mel``;
+   n_fft % 8 == 0, ``direct`` for n_fft 500 and the prime 4099 on the
+   classify grid) to max rel 1e-2 and bit for bit across two launches, with
+   its max rel against the float64 plain version for information, and at
+   classify [64, 144000] and the end-scan [1, 2.88M] the direct route at
+   the same shape (AAT_PALLAS_ALG=matmul) held the same way against its
+   plain version and timed beside it and the float64 FFT ``stft_mel``;
 5. the exact level's single-recording path: runs the port's CLI
    (``analyse -o FILE --bird-model DIR --seed 0``) in this process on the
    card, cold and then warm, with every kernel's launch count set to 0 just
@@ -79,7 +80,12 @@
    (confidences within 2: the bf16 TuiNet's convolutions round at other
    places on cuDNN and the CPU); then the batch again with a band-pass bird
    model (``filter_below: 9000``) and the pre-model, cold and warm (equal),
-   the first two on the CPU (confidences within 2);
+   the first two on the CPU (confidences within 2); then the batch with a
+   bird TuiNet alone whose metadata sets n_fft 4410 (its classify frontend
+   on stft_mel_bf16's direct route, once a batch; the end-scan on the dif
+   route), cold and warm (equal), the first two on the CPU (confidences
+   within 2), and the direct route held against its plain version on the
+   classify grid the cold batch gave it;
 7. EfficientNetB0 (``efficientnet_fixture``: the committed zero-weight
    archive with seeded weights, read by the port's HDF5 reader): alone on a
    [64, 160, 226, 3] grid of the recording's features, float32 on the card
@@ -855,8 +861,12 @@ def bf16_entry(name, x, kw, compare=False):
     if not torch.equal(got[rows], again[rows]):
         raise AssertionError(f"{name}: two launches differ")
     del again, ref
+    # the float64 route frames an odd n_fft as the exact level does, one
+    # frame fewer where the hop divides the window: compare the frames both have
     f64 = ms.stft_mel_plain(x, **kw)[rows]
-    rel_f64 = max_rel(g, f64)
+    nf = min(f64.shape[-1], g.shape[-1])
+    f64 = f64[..., :nf]
+    rel_f64 = max_rel(g[..., :nf], f64)
     n, s = x.shape
     n_fft, n_mels, frames = kw["n_fft"], kw["n_mels"], got.shape[-1]
     nnz = int((filterbank_np(kw["sr"], n_mels, kw["fmin"], kw["fmax"], n_fft,
@@ -875,8 +885,18 @@ def bf16_entry(name, x, kw, compare=False):
     if compare:
         os.environ["AAT_PALLAS_ALG"] = "matmul"
         try:
-            m["direct_max_rel_f64"] = max_rel(ms.stft_mel_bf16(x, **kw)[rows], f64)
-            m["direct_ms"] = time_ms(lambda: ms.stft_mel_bf16(x, **kw), 3)
+            d_got, d_again = ms.stft_mel_bf16(x, **kw), ms.stft_mel_bf16(x, **kw)
+            d_rel = max_rel(d_got[rows], ms.stft_mel_bf16_plain(x, **kw)[rows])
+            if not d_rel <= 1e-2:
+                raise AssertionError(f"{name}: the direct route's max rel {d_rel:.3g} vs its "
+                                     "plain version (limit 1e-2)")
+            if not torch.equal(d_got[rows], d_again[rows]):
+                raise AssertionError(f"{name}: two launches of the direct route differ")
+            m["direct_max_rel"] = d_rel
+            m["direct_max_rel_f64"] = max_rel(d_got[rows][..., :nf], f64)
+            m["direct_ms"] = time_ms(lambda: ms.stft_mel_bf16(x, **kw), 10)
+            m["direct_plain_ms"] = time_ms(lambda: ms.stft_mel_bf16_plain(x, **kw), 3)
+            del d_got, d_again
         finally:
             os.environ.pop("AAT_PALLAS_ALG")
         m["stft_mel_ms"] = time_ms(lambda: ms.stft_mel(x, **kw), 5)
@@ -886,9 +906,11 @@ def bf16_entry(name, x, kw, compare=False):
 
 def check_bf16(pcm):
     """stft_mel_bf16 against the plain version of its route on the card, at
-    the slice's shapes (dif route), at more than 320 frames a window (the
-    JAX package's VMEM cap, dif route here) and at n_fft % 8 != 0 (direct
-    route); returns {name: measurement}."""
+    the slice's shapes (dif route; at classify and the end-scan the direct
+    route too, under AAT_PALLAS_ALG=matmul), at more than 320 frames a
+    window (the JAX package's VMEM cap, dif route here) and at n_fft % 8 !=
+    0 (direct route: n_fft 500, and the prime 4099 on the classify grid);
+    returns {name: measurement}."""
     import torch
 
     from audio_analysis_torch.ops.scale import normalize_minmax
@@ -914,11 +936,12 @@ def check_bf16(pcm):
                                              fmin=50.0, fmax=7000.0, break_freq=1750.0,
                                              power=2.0)),
     }
+    shapes["nfft4099"] = (shapes["classify"][0], dict(cls, n_fft=4099))
     res = {f"stft_mel_bf16[{tag}]": bf16_entry(f"stft_mel_bf16[{tag}]", x, kw,
                                                compare=tag in ("classify", "end-scan"))
            for tag, (x, kw) in shapes.items()}
-    if res["stft_mel_bf16[nfft500]"]["dft_route"] != "direct" or any(
-            m["dft_route"] != "dif" for k, m in res.items() if "nfft500" not in k):
+    direct = ("stft_mel_bf16[nfft500]", "stft_mel_bf16[nfft4099]")
+    if any(m["dft_route"] != ("direct" if k in direct else "dif") for k, m in res.items()):
         raise AssertionError("stft_mel_bf16 took another route than bf16_route's")
     return res
 
@@ -971,10 +994,9 @@ def counters():
             "stft_mel_bf16": ms.stft_mel_bf16}
 
 
-# each DFT wrapper's routes counted as .<route>_launches (stft_mel_bf16: its
-# direct route only)
+# each DFT wrapper's routes counted as .<route>_launches
 ROUTES = {"stft_mel": ("fft", "fft1", "bluestein", "direct"),
-          "stft_mag": ("fft", "fft1", "bluestein", "direct"), "stft_mel_bf16": ("direct",)}
+          "stft_mag": ("fft", "fft1", "bluestein", "direct"), "stft_mel_bf16": ("dif", "direct")}
 
 
 def reset_counts():
@@ -2102,6 +2124,42 @@ def main():
                         "max_confidence_diff": worst}))
         if not count_labels([r["analysis"] for r in bp_batch["cold"]]):
             raise AssertionError("the band-pass batch labels no track")
+
+        # a bird TuiNet whose metadata sets n_fft 4410 (not a multiple of 8):
+        # its classify frontend takes stft_mel_bf16's direct route, the
+        # end-scan the dif route
+        t0 = time.perf_counter()
+        nfft_models = [write_tuinet_model(tmp / "bird-nfft4410", seed=0, net_dtype=None,
+                                          name="bird-nfft4410", n_fft=4410)]
+        nfft_fast_path = dict(fast_path, **{"stft_mel_bf16.direct": 1, "stft_mel_bf16.dif": 1})
+        nfft_batch, nfft_captured = {}, {}
+        for tag in ("cold", "warm"):
+            timer = StageTimer()
+            with capture_inputs(nfft_captured) if tag == "cold" else contextlib.nullcontext():
+                res, wall, nfft_batch_launches = run_batch_cli(wavs, nfft_models, "cuda", timer)
+            nfft_batch[tag] = res
+            log(json.dumps({"batch_run": f"n_fft 4410 {tag}", "device": "cuda",
+                            "recordings": len(res), "wall_s": wall,
+                            "audio_s_per_s": len(res) * SECONDS / wall,
+                            "launches": nfft_batch_launches, "timing": timer.as_dict(),
+                            "labels": count_labels([r["analysis"] for r in res])}))
+            require_launches(f"n_fft 4410 batch {tag} run", nfft_batch_launches, nfft_fast_path)
+        if without_times(nfft_batch["warm"]) != without_times(nfft_batch["cold"]):
+            raise AssertionError("the warm n_fft 4410 batch differs from the cold batch")
+        if not all(r["analysis"]["species_identify"] for r in nfft_batch["cold"][:2]):
+            raise AssertionError("the n_fft 4410 batch classified no track in a recording")
+        cpu_nfft, wall, _ = run_batch_cli(wavs[:2], nfft_models, "cpu")
+        worst = 0
+        for g, c in zip(nfft_batch["cold"], cpu_nfft):
+            worst = max(worst, compare_results(g["analysis"], c["analysis"], confidence_tol=2))
+        log(json.dumps({"nfft4410_fast_card_vs_cpu": len(cpu_nfft), "cpu_wall_s": wall,
+                        "max_confidence_diff": worst, "phase_s": time.perf_counter() - t0}))
+        _, x, kw = nfft_captured["batch classify"]
+        if kw["n_fft"] != 4410:
+            raise AssertionError(f"the n_fft 4410 batch's classify grid came with {kw}")
+        name = "stft_mel_bf16[batch classify, n_fft 4410]"
+        kernels[name] = bf16_entry(name, x, kw)
+        del nfft_captured, x
         os.environ.pop("AAT_FAST")
 
         # EfficientNetB0 (the reference's flagship classifier), read from
@@ -2209,9 +2267,12 @@ def main():
         route = m.get("dft_route")
         key = f"{base}.{route}" if route in ROUTES.get(base, ()) else base
         # each kernel's count on this slice's path where it runs there,
-        # else on the single-recording path; the one-buffer and direct
-        # routes' on the n_fft 8192 CLI
-        if route in ("fft1", "bluestein", "direct"):
+        # else on the single-recording path; the float64 one-buffer and
+        # direct routes' on the n_fft 8192 CLI, the bf16 direct route's on
+        # the n_fft 4410 fast batch
+        if base == "stft_mel_bf16" and route == "direct":
+            n = nfft_batch_launches[key]
+        elif route in ("fft1", "bluestein", "direct"):
             n = nfft_launches[key]
         else:
             n = batch_launches[key] if fast_path[base] else launches[key]
@@ -2226,6 +2287,7 @@ def main():
                                  "analyse_exact_44k1": launches44[key],
                                  "analyse_exact_bandpass": bp_launches[key],
                                  "batch_fast_bandpass": bp_batch_launches[key],
+                                 "batch_fast_nfft4410": nfft_batch_launches[key],
                                  **{path: n[key] for path, n in side_launches.items()}}} | {
             k: m.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "max_rel", "shape")})
@@ -2234,8 +2296,9 @@ def main():
             out[-1] |= {"dft_route": m["dft_route"], "library_ms_f64": m.get("library_ms_f64"),
                         "direct_launches": batch_launches[direct] if fast_path[base]
                         else launches[direct]}
-            out[-1] |= {k: m[k] for k in ("direct_ms", "stft_mel_ms", "max_rel_f64",
-                                          "direct_max_rel_f64", "vs_classify_4096") if k in m}
+            out[-1] |= {k: m[k] for k in ("direct_ms", "direct_plain_ms", "direct_max_rel",
+                                          "stft_mel_ms", "max_rel_f64", "direct_max_rel_f64",
+                                          "vs_classify_4096") if k in m}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"efficientnet_b0": {k: effnet_model[k] for k in (
         "f32_card_vs_cpu_max_abs", "bf16_vs_f32_max_abs", "bf16_vs_f32_mean_abs")} | {

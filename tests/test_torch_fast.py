@@ -224,24 +224,33 @@ def _result(tracks, length, signals, raw_length, labels):
     }))
 
 
-def test_fast_classify_matches_jax_fast_classify(tmp_path, monkeypatch):
+@pytest.mark.parametrize("case", ["matmul", "nfft4410"])
+def test_fast_classify_matches_jax_fast_classify(tmp_path, monkeypatch, case):
     """The JAX package's fast classify (the Pallas frontend forced on the
-    CPU backend in interpret mode, AAT_PALLAS_ALG=matmul so the frontend is
-    ``_kernel``, as tests/test_pallas_melspec.py sets it up) against the
-    port's fast classify on the CPU: signals, length and labels identical,
-    confidences within 1 (a float32 TuiNet)."""
+    CPU backend in interpret mode, as tests/test_pallas_melspec.py sets it
+    up) with its frontend on the direct-DFT ``_kernel`` against the port's
+    fast classify on the CPU: signals, length and labels identical,
+    confidences within 1 (a float32 TuiNet). ``matmul``: AAT_PALLAS_ALG=matmul
+    sends every mel to ``_kernel``; ``nfft4410``: no knob, a model whose
+    metadata sets n_fft 4410 (not a multiple of 8), so its classify
+    frontend takes ``_kernel`` on its own and the port's takes the direct
+    route's plain version."""
     import audio_analysis_tpu.pipeline.frontend as jfe
     from audio_analysis_tpu.ops.pallas import medians as jmd
     from audio_analysis_tpu.pipeline.classify import classify_frames as j_classify
     from audio_analysis_torch.pipeline.classify import classify_frames
 
+    meta = {"n_fft": 4410} if case == "nfft4410" else {}
     model = chip_smoke.write_tuinet_model(tmp_path / "m", seed=2, channels=(8, 16), stem=8,
-                                          dense=16, n_mels=40)
+                                          dense=16, n_mels=40, **meta)
     y = chip_smoke.make_recording(seconds=12, silent_from=10.0, seed=3)
     monkeypatch.setattr(jfe, "_pallas_backend", lambda: True)
     monkeypatch.setenv("AAT_FAST", "1")
     monkeypatch.delenv("AAT_PALLAS", raising=False)
-    monkeypatch.setenv("AAT_PALLAS_ALG", "matmul")
+    if case == "matmul":
+        monkeypatch.setenv("AAT_PALLAS_ALG", "matmul")
+    else:
+        monkeypatch.delenv("AAT_PALLAS_ALG", raising=False)
     monkeypatch.setattr(jm, "pallas_mel_spectrogram",
                         partial(jm.pallas_mel_spectrogram, interpret=True))
     monkeypatch.setattr(jm, "pallas_stft_magnitude",
@@ -255,9 +264,14 @@ def test_fast_classify_matches_jax_fast_classify(tmp_path, monkeypatch):
     ref = _result(*j_classify(y, SR, [str(model)], False, None, rng=np.random.RandomState(0)))
     assert calls, "the JAX side must run the direct-DFT _kernel"
     launches = ms.stft_mel_bf16.launches
+    plain = []
+    direct_plain = ms.stft_mel_bf16_plain
+    monkeypatch.setattr(ms, "stft_mel_bf16_plain",
+                        lambda *a, **k: plain.append(k["n_fft"]) or direct_plain(*a, **k))
     got = _result(*classify_frames(y, SR, [str(model)], False, None,
                                    rng=np.random.RandomState(0), device="cpu"))
     assert ms.stft_mel_bf16.launches == launches  # the CPU runs the plain version
+    assert plain and set(plain) == ({4096, 4800} if case == "matmul" else {4410})
     assert ref["species_identify"], "the fixture must produce tracks"
     for k in ("length", "signals", "max_chirps"):
         assert got[k] == ref[k]

@@ -174,3 +174,83 @@ def test_what_cannot_be_written_raises(saved_model, tmp_path):
         write_keras_archive(saved_model, {"no_such_layer": [w]}, tmp_path / "x.keras")
     with pytest.raises(KeyError, match="vars/2"):
         write_keras_archive(saved_model, {dense: [w, b, b]}, tmp_path / "x.keras")
+
+
+def test_keras2_export_config_pinned_across_both_fine_tune_clis(tmp_path, monkeypatch):
+    """A Keras-2 archive with a nested model called twice and a nested
+    Sequential (tests/test_torch_keras_graph.py's ``_keras2_nested_offset``,
+    built with tf_keras) fine-tuned for one step by the port's
+    ``cli/finetune.py`` and by the JAX package's ``tools/finetune_keras.py``
+    on the same seeded recordings: both executors mark the config
+    ``__aat_k2_shifted__`` and shift its nested node refs in place, and
+    both CLIs write that config back, so the two exported config.json are
+    equal, marked and shifted; each executor, reloading the other's export,
+    gives the logits the other gives (within 1e-6). The features stand in
+    for the frontend's: the model takes [8, 3], so both CLIs get the same
+    reduction of each PCM window."""
+    import importlib
+    import importlib.util
+
+    from audio_analysis_torch.cli import finetune as tcli
+    from audio_analysis_torch.io.audio import write_wav
+
+    spec = importlib.util.spec_from_file_location(
+        "keras_graph_archs", REPO / "tests" / "test_torch_keras_graph.py")
+    archs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(archs)
+    model, x, keras2 = archs._keras2_nested_offset(np.random.RandomState(0))
+    assert keras2
+    mdir = tmp_path / "model"
+    mdir.mkdir()
+    model.save(str(mdir / "audioModel.keras"))
+    labels = ["a", "b", "c"]
+    (mdir / "metadata.txt").write_text(json.dumps({
+        "name": "k2", "labels": labels, "segment_length": 1, "segment_stride": 1,
+        "hop_length": 640, "n_mels": 8, "n_fft": 4096, "threshold": 0.5}))
+    data = tmp_path / "data"
+    rng = np.random.RandomState(1)
+    for label in labels:
+        (data / label).mkdir(parents=True)
+        write_wav(data / label / "r.wav", (0.3 * rng.randn(48000)).astype(np.float32), 48000)
+
+    def feats(pcm, sr, cfg):
+        """[N, 48000] PCM -> [N, 8, 3]: means of 24 runs of 100 samples."""
+        return pcm[:, :2400].reshape(-1, 8, 3, 100).mean(-1) * 10.0
+
+    for pkg in ("audio_analysis_torch", "audio_analysis_tpu"):
+        monkeypatch.setattr(importlib.import_module(f"{pkg}.pipeline.classify"),
+                            "features_for_config", feats)
+    args = ["--epochs", "1", "--batch", "3", "--lr", "1e-2", "--seed", "0"]
+    assert tcli.run([str(mdir), str(data), str(tmp_path / "port"), *args,
+                     "--device", "cpu"]) == 0
+    monkeypatch.syspath_prepend(str(REPO / "tools"))
+    spec = importlib.util.spec_from_file_location("finetune_keras",
+                                                  REPO / "tools" / "finetune_keras.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.setattr(sys, "argv", ["finetune_keras.py", str(mdir), str(data),
+                                      str(tmp_path / "jax"), *args])
+    tool.main()
+
+    def config(d):
+        with zipfile.ZipFile(d / "audioModel.keras") as z:
+            return json.loads(z.read("config.json"))
+
+    with zipfile.ZipFile(mdir / "audioModel.keras") as z:
+        original = json.loads(z.read("config.json"))
+    port, jax_cfg = config(tmp_path / "port"), config(tmp_path / "jax")
+    assert port == jax_cfg
+    marked, orig = port["config"], original["config"]
+    assert marked.get("__aat_k2_shifted__") is True and "__aat_k2_shifted__" not in orig
+    assert {k: v for k, v in marked.items() if k != "__aat_k2_shifted__"} != orig
+    assert {k: v for k, v in port.items() if k != "config"} == {
+        k: v for k, v in original.items() if k != "config"}
+
+    xt = torch.from_numpy(x)
+    for d in ("port", "jax"):
+        path = tmp_path / d / "audioModel.keras"
+        with torch.no_grad():
+            got = KerasModel.load(path)(xt).numpy()
+        ref = np.asarray(JaxKerasModel.load(path)(jnp.asarray(x)))
+        assert got.shape == (2, 3)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)

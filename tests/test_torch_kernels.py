@@ -169,13 +169,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 # (sr, n_fft, hop, n_mels, samples, frames): the classify frontend, the
 # end-scan's frame prefix, a 4.5 s window of 338 frames, n_fft 2056 over the
 # whole band (129 bins a leaf: two bin tiles, leaves padded 257 -> 272), all
-# on the dif route, and n_fft % 8 != 0 (direct route)
+# on the dif route, and n_fft % 8 != 0 (direct route, frames by TMA from P
+# = 8 / gcd(hop, 8) shifted bf16 copies, one box a class): 500 at hop 125
+# (P = 8, 40 mels), the classify grid at n_fft 4410 (hop 640, P = 1), with
+# 256 mels, the prime 4099 at hop 281 (P = 8, 120 mels) and a frame prefix
+# of 4410
 BF16_GEOMS = {
     "classify": (48000, 4096, 640, 160, 144000, None),
     "endscan": (48000, 4800, 281, 120, 96000, 340),
     "long": (48000, 4096, 640, 160, 216000, None),
     "nfft2056": (16000, 2056, 512, 40, 16000, None),
     "nfft500": (16000, 500, 125, 40, 16000, None),
+    "nfft4410": (48000, 4410, 640, 160, 144000, None),
+    "nfft4410-mel256": (48000, 4410, 640, 256, 48000, None),
+    "nfft4099": (48000, 4099, 281, 120, 48000, None),
+    "nfft4410-prefix": (48000, 4410, 640, 120, 96000, 131),
 }
 
 
@@ -187,7 +195,7 @@ def _bf16_plain(wins, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("geom", list(BF16_GEOMS))
-@pytest.mark.parametrize("power", [1.0, 2.0])
+@pytest.mark.parametrize("power", [1.0, 1.5, 2.0])
 def test_stft_mel_bf16_kernel_matches_plain(cuda_device, rng, geom, power):
     """Limit 1e-2 max rel against the plain version of the same route: one
     bf16 rounding flip of a power term moves a mel value by at most 2^-7 of
@@ -198,7 +206,7 @@ def test_stft_mel_bf16_kernel_matches_plain(cuda_device, rng, geom, power):
     kw = dict(sr=sr, n_fft=n_fft, hop_length=hop, n_mels=n_mels, fmin=50.0,
               fmax=min(11000.0, sr / 2), power=power, frames=frames)
     direct = ms.bf16_route(n_fft) == "direct"
-    assert direct == (geom == "nfft500")
+    assert direct == (n_fft % 8 != 0)
     before = (ms.stft_mel_bf16.launches, ms.stft_mel_bf16.direct_launches)
     got = ms.stft_mel_bf16(wins, **kw)
     assert (ms.stft_mel_bf16.launches, ms.stft_mel_bf16.direct_launches) == (
@@ -235,6 +243,50 @@ def test_stft_mel_dif_bf16_silent_frames_and_odd_counts(cuda_device, rng, sample
     for b, at in enumerate(tails):
         silent = 1 + (at + 2400) // 281  # first frame wholly past the tail
         assert not bool(got[b, :, silent:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop", [(4410, 640), (4099, 281), (500, 125)])
+def test_stft_mel_bf16_direct_silent_frames_and_nan_rows(cuda_device, rng, n_fft, hop):
+    """The direct route on windows silent from their own points, one window
+    not finite (all-zero audio normalises to NaN) and one all zero: frames
+    wholly past each tail come out as exact zeros, the NaN window stays in
+    its own rows, the finite rows are within 1e-2 of the plain version, two
+    launches bit for bit; at hop 640 (one copy, P = 1) and at hops 281
+    and 125 (P = 8 shifted copies, one TMA box a class)."""
+    s = 40 * hop + n_fft
+    tails = (s, s // 2, 3 * hop, 0)
+    x = (0.1 * rng.randn(len(tails) + 1, s)).astype(np.float32)
+    for row, at in zip(x, tails):
+        row[at:] = 0.0
+    x[-1] = np.nan
+    x = torch.from_numpy(x).to(cuda_device)
+    kw = dict(sr=48000, n_fft=n_fft, hop_length=hop, n_mels=64, fmin=50.0, fmax=11000.0,
+              power=1.0)
+    before = ms.stft_mel_bf16.direct_launches
+    got = ms.stft_mel_bf16(x, **kw)
+    assert ms.stft_mel_bf16.direct_launches == before + 1
+    ref = ms.stft_mel_bf16_plain(x, **kw)
+    fin = slice(0, len(tails))
+    assert bool(torch.isfinite(got[fin]).all())
+    assert bool(torch.isnan(got[-1]).all()) and bool(torch.isnan(ref[-1]).all())
+    assert _max_rel(got[fin], ref[fin]) <= 1e-2
+    again = ms.stft_mel_bf16(x, **kw)
+    assert torch.equal(got[fin], again[fin])
+    for b, at in enumerate(tails):
+        silent = -(-(at + n_fft // 2) // hop)  # first frame wholly past the tail
+        assert not bool(got[b, :, silent:].any())
+
+
+@pytest.mark.cuda
+def test_direct_smem_matches_the_kernel(cuda_device):
+    """The host's size of a direct block's shared memory is the library's,
+    for every mel capacity, and fits the card."""
+    from audio_analysis_torch.ops import cuda as kcuda
+
+    lib = kcuda.library()
+    for rows in ms.BF16_MEL_ROWS:
+        assert lib.aat_stft_mel_bf16_smem(rows) == ms.direct_smem(rows) <= lib.aat_smem_optin()
 
 
 @pytest.mark.cuda
