@@ -1,5 +1,5 @@
 """Fine-tune a released ``.keras`` classifier on labelled audio (the JAX
-package's tools/finetune_keras.py, on one device).
+package's tools/finetune_keras.py).
 
 Takes a model dir (audioModel.keras + metadata.txt) and a data dir laid out
 DATA_DIR/<label>/*.wav, and writes OUT_DIR with the tuned audioModel.keras
@@ -10,6 +10,14 @@ replaced and metadata.txt carries the new label space.
 
     python -m audio_analysis_torch.cli.finetune MODEL_DIR DATA_DIR OUT_DIR \\
         [--epochs 5] [--batch 64] [--lr 1e-4] [--seed 0] [--device cuda]
+
+Data-parallel over N devices, one process a device under torchrun:
+
+    torchrun --nproc-per-node N -m audio_analysis_torch.cli.finetune \\
+        MODEL_DIR DATA_DIR OUT_DIR --mesh data=N
+
+Every rank draws the same seeded permutation and takes its rows of each
+global batch (the batch must divide by N); rank 0 alone writes OUT_DIR.
 """
 
 import argparse
@@ -30,23 +38,52 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default=None, help="e.g. data=8: data-parallel over 8 ranks")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
 
+def mesh_size(spec):
+    """N from ``data=N`` (the JAX tool's --mesh)."""
+    axis, _, n = (spec or "").partition("=")
+    if axis != "data" or not n.isdigit() or int(n) < 1:
+        raise ValueError(f"--mesh takes data=N, got {spec!r}")
+    return int(n)
+
+
 def run(argv=None):
+    import os
+
+    from audio_analysis_torch.device import resolve_device
+    from audio_analysis_torch.parallel import distributed
+    from audio_analysis_torch.parallel.mesh import data_index, make_mesh
+
+    args = parse_args(argv)
+    sharded = args.mesh is not None or "WORLD_SIZE" in os.environ
+    if not sharded:
+        return _tune(args, resolve_device(args.device), None, 0)
+    n = mesh_size(args.mesh) if args.mesh else None
+    dev = distributed.initialize(device=args.device)
+    try:
+        mesh = make_mesh(n_devices=n, model_parallel=1, device_type=dev.type)
+        return _tune(args, dev, mesh, data_index(mesh))
+    finally:
+        distributed.shutdown()
+
+
+def _tune(args, dev, mesh, d):
+    """The fine-tune on `dev`, or on this rank of `mesh` (data index `d`)."""
     import torch
 
     from audio_analysis_torch.cli.train import load_dataset
-    from audio_analysis_torch.device import resolve_device
     from audio_analysis_torch.io.keras_export import write_keras_archive
     from audio_analysis_torch.io.modelconfig import ModelConfig
     from audio_analysis_torch.models.keras_graph import KerasModel
     from audio_analysis_torch.parallel.finetune import build_finetune, replace_head
     from audio_analysis_torch.pipeline.classify import features_for_config
 
-    args = parse_args(argv)
-    dev = resolve_device(args.device)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     model_dir = Path(args.model_dir)
     cfg = ModelConfig.load(model_dir)
     sr = 48000
@@ -54,7 +91,7 @@ def run(argv=None):
                                        cfg.segment_stride, device=dev)
     km = KerasModel.load(model_dir)
     if labels != list(cfg.labels):
-        print(f"label space changed {list(cfg.labels)} -> {labels}: replacing head")
+        say(f"label space changed {list(cfg.labels)} -> {labels}: replacing head")
         replace_head(km, len(labels), seed=args.seed)
 
     def feats(pcm):
@@ -64,13 +101,20 @@ def run(argv=None):
             x = features_for_config(pcm, sr, cfg)
         return x.repeat_interleave(3, dim=-1) if cfg.is_efficientnet else x
 
-    params, optimizer, step = build_finetune(km, dev, lr=args.lr)
+    if mesh is None:
+        params, optimizer, step = build_finetune(km, dev, lr=args.lr)
+    else:
+        params, optimizer, step = build_finetune(km, lr=args.lr, mesh=mesh)
     rng = np.random.RandomState(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     n = len(windows)
     batch = min(args.batch, n)
     if batch < 2:
         sys.exit(f"need at least 2 training windows, found {n}")
+    n_data = 1 if mesh is None else mesh.size(0)
+    if batch % n_data:
+        raise ValueError(f"batch {batch} not divisible by the mesh's data={n_data}")
+    per = batch // n_data
     loss = acc = float("nan")
     for epoch in range(args.epochs):
         order = rng.permutation(n)
@@ -80,9 +124,12 @@ def run(argv=None):
                 # keep the batch shape: wrap the tail with the start of this
                 # epoch's shuffle, so every window counts each epoch
                 idx = np.concatenate([idx, order[: batch - len(idx)]])
+            idx = idx[d * per : (d + 1) * per]  # this rank's rows
             loss, acc = step(params, optimizer, feats(torch.from_numpy(windows[idx]).to(dev)),
                              torch.from_numpy(ys[idx]).to(dev), gen)
-        print(f"epoch {epoch}: loss {float(loss):.4f} acc {float(acc):.3f}")
+        say(f"epoch {epoch}: loss {float(loss):.4f} acc {float(acc):.3f}")
+    if not lead:
+        return 0
 
     out = Path(args.out_dir)
     out.mkdir(parents=True, exist_ok=True)

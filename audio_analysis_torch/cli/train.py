@@ -1,5 +1,5 @@
 """Train a TuiNet classifier into a servable checkpoint dir (the JAX
-package's tools/train_tuinet.py, on one device).
+package's tools/train_tuinet.py).
 
 Data layout: DATA_DIR/<label>/*.wav; each file yields overlapping 3 s / 1.5 s
 windows at the training rate (the serving geometry). The output dir
@@ -8,6 +8,18 @@ CLIs and batch serving load.
 
     python -m audio_analysis_torch.cli.train DATA_DIR OUT_MODEL_DIR \\
         [--epochs 5] [--batch 64] [--lr 1e-3] [--device cuda]
+
+Over several devices, one process a device under torchrun (NCCL on the
+cards; gloo with ``--device cpu``):
+
+    torchrun --nproc-per-node N -m audio_analysis_torch.cli.train DATA OUT \\
+        [--model-parallel M]
+
+Every rank draws the same seeded permutation and takes its rows of each
+global batch (N / M data indices; the dense head split over M), so the
+global batches are those of one process; rank 0 alone writes the
+checkpoint, its head gathered whole. ``--model-parallel`` above 1 without
+torchrun needs a world of that many ranks, and fails.
 """
 
 import argparse
@@ -51,45 +63,69 @@ def parse_args(argv=None):
     ap.add_argument("--n-mels", type=int, default=160)
     ap.add_argument("--hop-length", type=int, default=640)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks that split the dense head (a mesh over every rank)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
 
 def run(argv=None):
+    import os
+
     import torch
 
     from audio_analysis_torch.device import resolve_device
     from audio_analysis_torch.io.checkpoint import save_checkpoint
     from audio_analysis_torch.models.birdnet import TuiNetConfig
-    from audio_analysis_torch.parallel.train import build_train
+    from audio_analysis_torch.parallel import distributed
+    from audio_analysis_torch.parallel.mesh import data_index, make_mesh
+    from audio_analysis_torch.parallel.train import build_train, full_jax_params
 
     args = parse_args(argv)
-    dev = resolve_device(args.device)
-    x, y, labels = load_dataset(Path(args.data_dir), args.sr, 3.0, 1.5, device=dev)
-    print(f"dataset: {len(x)} windows, labels {labels}")
+    sharded = "WORLD_SIZE" in os.environ or args.model_parallel > 1
+    dev = distributed.initialize(device=args.device) if sharded else resolve_device(args.device)
+    try:
+        mesh = make_mesh(model_parallel=args.model_parallel, device_type=dev.type) \
+            if sharded else None
+        lead = mesh is None or torch.distributed.get_rank() == 0
+        say = print if lead else (lambda *a, **k: None)
+        x, y, labels = load_dataset(Path(args.data_dir), args.sr, 3.0, 1.5, device=dev)
+        say(f"dataset: {len(x)} windows, labels {labels}")
 
-    cfg = TuiNetConfig(num_classes=len(labels), n_mels=args.n_mels)
-    net, optimizer, step = build_train(cfg, dev, sr=args.sr, hop_length=args.hop_length,
-                                       lr=args.lr, seed=args.seed)
-    rng = np.random.RandomState(args.seed)
-    n = len(x)
-    steps = max(n // args.batch, 1)
-    for epoch in range(args.epochs):
-        order = rng.permutation(n)
-        tot_loss = tot_acc = 0.0
-        for s in range(steps):
-            idx = order[s * args.batch : (s + 1) * args.batch]
-            if len(idx) < args.batch:  # keep the batch shape
-                idx = np.concatenate([idx, order[: args.batch - len(idx)]])
-            loss, acc = step(net, optimizer, torch.from_numpy(x[idx]).to(dev),
-                             torch.from_numpy(y[idx]).to(dev))
-            tot_loss += float(loss)
-            tot_acc += float(acc)
-        print(f"epoch {epoch}: loss {tot_loss/steps:.4f} acc {tot_acc/steps:.3f}")
+        cfg = TuiNetConfig(num_classes=len(labels), n_mels=args.n_mels)
+        n_data, d = (1, 0) if mesh is None else (mesh.size(0), data_index(mesh))
+        if args.batch % n_data:
+            raise ValueError(f"--batch {args.batch} not divisible by the mesh's data={n_data}")
+        net, optimizer, step = build_train(cfg, dev if mesh is None else None, sr=args.sr,
+                                           hop_length=args.hop_length, lr=args.lr,
+                                           seed=args.seed, mesh=mesh)
+        per = args.batch // n_data
+        rows = slice(d * per, (d + 1) * per)
+        rng = np.random.RandomState(args.seed)
+        n = len(x)
+        steps = max(n // args.batch, 1)
+        for epoch in range(args.epochs):
+            order = rng.permutation(n)
+            tot_loss = tot_acc = 0.0
+            for s in range(steps):
+                idx = order[s * args.batch : (s + 1) * args.batch]
+                if len(idx) < args.batch:  # keep the batch shape
+                    idx = np.concatenate([idx, order[: args.batch - len(idx)]])
+                idx = idx[rows]  # this rank's rows of the global batch
+                loss, acc = step(net, optimizer, torch.from_numpy(x[idx]).to(dev),
+                                 torch.from_numpy(y[idx]).to(dev))
+                tot_loss += float(loss)
+                tot_acc += float(acc)
+            say(f"epoch {epoch}: loss {tot_loss/steps:.4f} acc {tot_acc/steps:.3f}")
 
-    out = save_checkpoint(args.out_dir, net.to_jax_params(),
-                          checkpoint_meta(labels, args.n_mels, args.hop_length, cfg.channels))
-    print(f"saved servable checkpoint to {out}")
+        params = full_jax_params(net, mesh)
+        if lead:
+            out = save_checkpoint(args.out_dir, params, checkpoint_meta(
+                labels, args.n_mels, args.hop_length, cfg.channels))
+            print(f"saved servable checkpoint to {out}")
+    finally:
+        if sharded:
+            distributed.shutdown()
     return 0
 
 

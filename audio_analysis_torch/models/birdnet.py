@@ -53,12 +53,10 @@ class _BatchNorm(nn.Module):
         self.gamma = nn.Parameter(torch.ones(c))
         self.beta = nn.Parameter(torch.zeros(c))
 
-    def forward(self, x):
+    def forward(self, x, group=None):
         if not self.training:
             return L.batch_norm(x, self.mean, self.var, self.gamma, self.beta, eps=1e-3), None
-        # two passes, as jnp.var takes them: the centered biased variance
-        mean = x.mean(dim=(0, 1, 2))
-        var = torch.square(x - mean).mean(dim=(0, 1, 2))
+        mean, var = L.batch_moments(x, (0, 1, 2), group)
         y = L.batch_norm(x, mean, var, self.gamma, self.beta, eps=1e-3)
         return y, {"mean": mean.detach(), "var": var.detach()}
 
@@ -71,12 +69,12 @@ class _Block(nn.Module):
         self.w2 = nn.Parameter(torch.zeros(c_out, c_out, 3, 3))
         self.bn2 = _BatchNorm(c_out)
 
-    def forward(self, y, dt):
+    def forward(self, y, dt, group=None):
         y = L.conv2d(y, self.w1.to(dt))
-        y, s1 = self.bn1(y.float())
+        y, s1 = self.bn1(y.float(), group)
         y = torch.relu(y.to(dt))
         y = L.conv2d(y, self.w2.to(dt))
-        y, s2 = self.bn2(y.float())
+        y, s2 = self.bn2(y.float(), group)
         y = torch.relu(y.to(dt))
         return L.max_pool2d(y, (2, 2), (2, 2), "SAME"), {"bn1": s1, "bn2": s2}
 
@@ -97,20 +95,35 @@ class TuiNet(nn.Module):
         self.head_w2 = nn.Parameter(torch.zeros(cfg.dense_units, cfg.num_classes))
         self.head_b2 = nn.Parameter(torch.zeros(cfg.num_classes))
 
-    def forward(self, x, with_stats=False):
+    def forward(self, x, with_stats=False, data_group=None, model_group=None):
         """x [B, n_mels, T, 1] -> logits [B, num_classes]; with
         ``with_stats``, (logits, stats): per block {"bn1": {"mean", "var"},
-        "bn2": ...} of the batch in train mode (None in eval mode)."""
+        "bn2": ...} of the batch in train mode (None in eval mode).
+
+        The sharded training step (parallel/train.py) passes its process
+        groups: `data_group` makes train-mode BatchNorm normalise with the
+        statistics of the whole batch its ranks hold; with `model_group`
+        this rank holds a slice of the head (``HEAD_PLAN``), and the
+        partial logits are summed over the group before ``head_b2``."""
         dt = _DTYPES[self.cfg.dtype]
         y = mag_transform(torch.clamp(x, min=0.0), self.mag_a).to(dt)
         y = torch.relu(L.conv2d(y, self.stem_w.to(dt), self.stem_b.to(dt), strides=(2, 2)))
         stats = []
         for blk in self.blocks:
-            y, s = blk(y, dt)
+            y, s = blk(y, dt, data_group)
             stats.append(s)
         y = L.global_avg_pool2d(y.float())
-        y = torch.relu(L.dense(y, self.head_w1, self.head_b1))
-        logits = L.dense(y, self.head_w2, self.head_b2)
+        if model_group is None:
+            y = torch.relu(L.dense(y, self.head_w1, self.head_b1))
+            logits = L.dense(y, self.head_w2, self.head_b2)
+        else:
+            from audio_analysis_torch.parallel.distributed import (
+                copy_to_group,
+                reduce_from_group,
+            )
+
+            y = torch.relu(L.dense(copy_to_group(y, model_group), self.head_w1, self.head_b1))
+            logits = reduce_from_group(L.dense(y, self.head_w2), model_group) + self.head_b2
         return (logits, stats) if with_stats else logits
 
     @classmethod

@@ -350,10 +350,21 @@ _NOISE_LAYERS = ("Dropout", "SpatialDropout2D", "GaussianNoise", "GaussianDropou
 
 class _TrainContext:
     """One training forward's state, shared with nested models: the live
-    leaves, the mask generator and the batch statistics collected."""
+    leaves, the mask generator, the batch statistics collected and, in a
+    data-parallel step, the data shard (group, first row, global rows)."""
 
-    def __init__(self, params, generator):
+    def __init__(self, params, generator, data_shard=None):
         self.params, self.generator, self.stats = params, generator, {}
+        self.group, self.row0, self.rows = data_shard or (None, 0, None)
+
+    def draw(self, sample, shape, per_row):
+        """``sample(shape)`` from the generator; in a data shard, a noise
+        tensor with one entry a row (`per_row`) is this rank's rows of the
+        global batch's draw, so that every rank's masks are those that one
+        process would draw for the whole batch."""
+        if self.rows is None or not per_row:
+            return sample(shape)
+        return sample([self.rows] + list(shape[1:]))[self.row0 : self.row0 + shape[0]]
 
 
 class KerasModel(nn.Module):
@@ -512,7 +523,7 @@ class KerasModel(nn.Module):
 
     # -- execution ----------------------------------------------------------
 
-    def apply_train(self, params, x, generator):
+    def apply_train(self, params, x, generator, data_shard=None):
         """Training-mode forward over the leaves `params` ({weight key:
         [tensors]}, ``self.params``'s layout): BatchNormalization normalises
         with the batch statistics (mean and centered biased variance over
@@ -521,8 +532,13 @@ class KerasModel(nn.Module):
         are live, their draws taken in turn from `generator` (a
         ``torch.Generator`` on x's device). Returns (y, batch_stats), where
         batch_stats maps each BatchNormalization weight key to its
-        (batch_mean, batch_var), detached."""
-        ctx = _TrainContext(params, generator)
+        (batch_mean, batch_var), detached.
+
+        `data_shard`: (process group, first row, global rows) when `x` is
+        this rank's rows of a global batch (parallel/finetune.py): the
+        statistics are the global batch's, and each noise draw is this
+        rank's rows of the global draw."""
+        ctx = _TrainContext(params, generator, data_shard)
         models = [m for m in self.modules() if isinstance(m, KerasModel)]
         for m in models:
             m._train_ctx = ctx
@@ -789,8 +805,7 @@ class KerasModel(nn.Module):
                 xf = x.float()
                 # the centered moment, not E[x^2] - E[x]^2, which cancels
                 # catastrophically for large-mean activations
-                bm = xf.mean(red)
-                bv = torch.square(xf - bm.reshape(shape)).mean(red)
+                bm, bv = L.batch_moments(xf, red, ctx.group)
                 ctx.stats[key] = (bm.detach(), bv.detach())
                 inv_b = torch.rsqrt(bv + eps)
                 ab = inv_b if g is None else g * inv_b
@@ -970,22 +985,23 @@ class KerasModel(nn.Module):
                 return x
             gen = ctx.generator
             if cls in ("Dropout", "SpatialDropout2D") and rate > 0:
-                shape = list(x.shape)
+                shape, per_row = list(x.shape), True
                 if cls == "SpatialDropout2D":
                     shape[1] = shape[2] = 1
                 elif cfg.get("noise_shape"):
                     # None dims follow the input, fixed dims broadcast
                     shape = [x.shape[d] if n is None else int(n)
                              for d, n in enumerate(cfg["noise_shape"])]
-                keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - rate
-                return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+                    per_row = cfg["noise_shape"][0] is None
+                u = ctx.draw(lambda s: torch.rand(s, generator=gen, device=x.device), shape,
+                             per_row)
+                return torch.where(u < 1.0 - rate, x / (1.0 - rate), 0.0).to(x.dtype)
+            normal = lambda s: torch.randn(s, generator=gen, device=x.device, dtype=x.dtype)
             if cls == "GaussianNoise" and stddev:
-                return x + stddev * torch.randn(x.shape, generator=gen, device=x.device,
-                                                dtype=x.dtype)
+                return x + stddev * ctx.draw(normal, x.shape, True)
             if cls == "GaussianDropout" and rate > 0:
                 std = math.sqrt(rate / (1.0 - rate))
-                return x * (1.0 + std * torch.randn(x.shape, generator=gen, device=x.device,
-                                                    dtype=x.dtype))
+                return x * (1.0 + std * ctx.draw(normal, x.shape, True))
             return x
 
         return noise

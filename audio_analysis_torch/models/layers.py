@@ -227,6 +227,24 @@ def batch_norm(x, mean, var, gamma=None, beta=None, eps=1e-3, axis=-1):
     return y
 
 
+def batch_moments(x, dims, group=None):
+    """Training BatchNorm's statistics: the mean and the centred biased
+    variance of `x` over `dims` (two passes, as jnp.var takes them). With a
+    process `group`, whose ranks hold equal parts of one batch, they are
+    the whole batch's: each pass's sums are all-reduced over the group, and
+    gradients flow through the reduction to every rank's rows."""
+    shape = [1 if d in dims else s for d, s in enumerate(x.shape)]
+    if group is None:
+        mean = x.mean(dims)
+        return mean, torch.square(x - mean.reshape(shape)).mean(dims)
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_reduce
+
+    count = math.prod(x.shape[d] for d in dims) * dist.get_world_size(group)
+    mean = all_reduce(x.sum(dims), group=group) / count
+    return mean, all_reduce(torch.square(x - mean.reshape(shape)).sum(dims), group=group) / count
+
+
 # ---------------------------------------------------------------------------
 # pooling
 # ---------------------------------------------------------------------------

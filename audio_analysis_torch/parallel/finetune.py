@@ -1,5 +1,5 @@
 """Fine-tune imported ``.keras`` classifiers (the JAX package's
-parallel/finetune.py, on one device).
+parallel/finetune.py).
 
 The leaves are ``KerasModel.params`` as tensors in Keras's layouts; a step
 runs ``KerasModel.apply_train`` (batch-statistics BatchNorm, live dropout),
@@ -9,6 +9,13 @@ statistics, whose gradients are not zero) and integer leaves (Normalization's
 ``count``) stay out of the optimizer, so their only update is the EMA. The
 tuned leaves go back into a ``.keras`` archive with
 io/keras_export.py::write_keras_archive.
+
+Over a mesh (``build_finetune(km, mesh=)``) the step is data-parallel, as
+the JAX package's is: each rank takes its rows of the global batch,
+BatchNorm's statistics are the global batch's, each dropout mask is the
+rank's rows of the mask one process would draw for the global batch (the
+ranks' generators in the same state), and the gradients are summed over
+'data'; the leaves replicate.
 """
 
 import logging
@@ -18,6 +25,7 @@ import torch
 
 from audio_analysis_torch.device import resolve_device
 from audio_analysis_torch.models.keras_graph import _collect_history
+from audio_analysis_torch.parallel.distributed import all_reduce_tensors
 
 BN_MOMENTUM = 0.99  # Keras BatchNormalization default
 
@@ -124,17 +132,27 @@ def replace_head(km, num_classes, seed=0):
 
 
 def build_finetune(km, device=None, lr=1e-4, weight_decay=1e-4, bn_momentum=BN_MOMENTUM,
-                   outputs="probs"):
+                   outputs="probs", mesh=None):
     """(params, optimizer, step) for fine-tuning `km` on `device` (None:
-    the card; the model is moved there).
+    the card; the model is moved there), or data-parallel on this rank's
+    device of `mesh` (then `device` stays None).
 
     ``step(params, optimizer, feats, labels, generator) -> (loss, acc)``
     updates `params` and `optimizer` in place. `feats` is the model-input
     feature grid (e.g. [B, n_mels, T, C] mel windows from
-    ``classify.features_for_config``), `generator` a ``torch.Generator`` on
-    the device for the dropout masks. `outputs`: "probs" when the model ends
-    in softmax (every released classifier: log(clip(p, 1e-9, 1))), "logits"
-    otherwise (log-softmax)."""
+    ``classify.features_for_config``; over a mesh, this rank's rows of the
+    global batch), `generator` a ``torch.Generator`` on the device for the
+    dropout masks. `outputs`: "probs" when the model ends in softmax (every
+    released classifier: log(clip(p, 1e-9, 1))), "logits" otherwise
+    (log-softmax). The loss and accuracy are the global batch's."""
+    group, n_data, d = None, 1, 0
+    if mesh is not None:
+        from audio_analysis_torch.parallel.mesh import data_group, data_index, rank_device
+
+        if device is not None:
+            raise ValueError("pass a mesh or a device: the mesh decides the device")
+        device, group, n_data, d = rank_device(mesh), data_group(mesh), mesh.size(0), \
+            data_index(mesh)
     dev = resolve_device(device)
     km.to(dev)
     frozen, decay = non_trainable_mask(km), decay_mask(km)
@@ -153,23 +171,31 @@ def build_finetune(km, device=None, lr=1e-4, weight_decay=1e-4, bn_momentum=BN_M
         lr=lr, betas=(0.9, 0.999), eps=1e-8,
     )
 
+    trainable = [t for ts in groups.values() for t in ts]
+
     def step(params, optimizer, feats, labels, generator):
         optimizer.zero_grad(set_to_none=True)
-        out, bn_stats = km.apply_train(params, feats, generator)
+        b = feats.shape[0]
+        shard = None if group is None else (group, d * b, n_data * b)
+        out, bn_stats = km.apply_train(params, feats, generator, data_shard=shard)
         if outputs == "probs":
             logp = torch.log(torch.clamp(out, 1e-9, 1.0))
         else:
             logp = torch.log_softmax(out, dim=1)
         labels = labels.long()
-        nll = -logp.gather(1, labels[:, None]).mean()
-        acc = (logp.argmax(dim=1) == labels).float().mean()
+        nll = -logp.gather(1, labels[:, None]).sum() / (n_data * b)
+        acc = (logp.argmax(dim=1) == labels).float().sum() / (n_data * b)
         nll.backward()
+        totals = torch.stack([nll.detach(), acc])
+        if group is not None:
+            all_reduce_tensors([t.grad for t in trainable if t.grad is not None] + [totals],
+                               group)
         optimizer.step()
         with torch.no_grad():
             for key, (bm, bv) in bn_stats.items():
                 vs = params[key]
                 vs[-2].copy_(bn_momentum * vs[-2] + (1.0 - bn_momentum) * bm)
                 vs[-1].copy_(bn_momentum * vs[-1] + (1.0 - bn_momentum) * bv)
-        return nll.detach(), acc
+        return totals[0], totals[1]
 
     return params, optimizer, step

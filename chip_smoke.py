@@ -128,10 +128,29 @@
    step, as the fine-tune CLI takes them), the same numbers, exported
    without h5py, read back leaf for leaf and served by the exact CLI on the
    card and the CPU;
-11. prints one JSON line of the EfficientNetB0 numbers, one of the packed
-   morphology's, one of the side paths', one of training's, one describing
-   every kernel, the card's name and power limit, then the last line
-   ``{"ok": true, "device": {...}}``.
+11. scale-out over torch.distributed (``check_scaleout``): a world of one
+   rank on NCCL, ``BatchAnalyzer(mesh=make_mesh())`` on the eight WAVs
+   under AAT_FAST=1 equal to the meshless analyzer byte for byte; then two
+   ranks spawned on the one card (gloo; NCCL refuses two ranks on one GPU),
+   each fed four of the eight WAVs at the exact level (the float32 TuiNet)
+   and under AAT_FAST=1 (the bird and pre TuiNets): the gathered list, on
+   both ranks, equal to this process's analyzer fed the same two batches
+   bit for bit and to one 8-WAV batch within the result contract
+   (confidences within 1; 2 for the bfloat16 models), each rank launching
+   stft_mag, row_medians, col_medians and stft_mel (exact) or
+   stft_mel_bf16's dif route (fast); in the same ranks the full-width
+   float32 TuiNet's first step at global batch 64 on a data=2 and a model=2
+   mesh against this process's step, both on linear mel power (the dB
+   features clamp to zeros and leave the convolutions and BatchNorm without
+   a gradient): loss within 1e-4, each gradient and each BatchNorm running
+   statistic's change within 1e-3 in relative L2 or 3x the permuted batch's
+   difference, and no leaf of this process's step without a gradient; and
+   the sharded step's ms; each rank's warm wall and gather ms, labelled as
+   two ranks sharing one card, not a scaling figure;
+12. prints one JSON line of the EfficientNetB0 numbers, one of the packed
+   morphology's, one of the side paths', one of training's, one of the
+   scale-out phase's, one describing every kernel, the card's name and
+   power limit, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
 line; without a CUDA device it exits non-zero at once.
@@ -1874,6 +1893,301 @@ def check_training(tmp, wav, pcm, effnet_dir):
     return m, launches
 
 
+SCALEOUT_RANKS = 2  # two gloo ranks on the one card: a correctness check
+SCALEOUT_NOTE = "two ranks sharing one card: not a scaling figure"
+SCALEOUT_DEADLINE = 300  # s; a rank still running then fails the phase
+
+
+def _scaleout_rank(wav, wavs, exact_model, fast_models, init_dir):
+    """One rank of the scale-out phase (gloo, on the card beside the other
+    rank): mesh serving of its half of `wavs` at the exact level with
+    `exact_model` and under AAT_FAST=1 with `fast_models` (cold, then warm
+    with the kernel counts reset around it and a StageTimer), then the
+    full-width float32 TuiNet's first step at global batch 64 on linear
+    mel power (the weights in `init_dir`, the windows ``train_windows``
+    cuts from `wav`) on a data=2 and a model=2 mesh: its loss, its
+    gradients (the head gathered whole), its running statistics' change
+    and the step's ms."""
+    import torch
+    import torch.distributed as dist
+
+    from audio_analysis_torch.io.audio import load_recording
+    from audio_analysis_torch.io.checkpoint import load_checkpoint_params
+    from audio_analysis_torch.models.birdnet import TuiNet, TuiNetConfig
+    from audio_analysis_torch.parallel import train
+    from audio_analysis_torch.parallel.mesh import data_index, make_mesh, rank_device
+    from audio_analysis_torch.pipeline.serve import BatchAnalyzer
+    from audio_analysis_torch.utils.runtime import StageTimer
+
+    os.environ.pop("AAT_TIMINGS", None)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh()
+    dev = rank_device(mesh)
+    per = len(wavs) // n
+    recs = [load_recording(w, prefer_int16=True)[0] for w in wavs[rank * per:(rank + 1) * per]]
+    out = {"rank": rank, "device": str(dev)}
+    for level, models in (("exact", [exact_model]), ("fast", fast_models)):
+        if level == "fast":
+            os.environ["AAT_FAST"] = "1"
+        else:
+            os.environ.pop("AAT_FAST", None)
+        analyzer = BatchAnalyzer(models, sr=SR, rng=None, mesh=mesh)
+        t0 = time.perf_counter()
+        analyzer.analyse_recordings(recs)
+        cold = time.perf_counter() - t0
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = analyzer.analyse_recordings(recs, timer=timer)
+        torch.cuda.synchronize()
+        out[level] = {"results": res, "cold_wall_s": cold, "warm_wall_s": time.perf_counter() - t0,
+                      "gather_ms": 1e3 * timer.stages.get("gather", 0.0),
+                      "timing": timer.as_dict(), "launches": read_counts()}
+    os.environ.pop("AAT_FAST", None)
+
+    pcm16, _ = load_recording(wav, prefer_int16=True)
+    windows, labels = train_windows(pcm16.astype(np.float32) / 32768.0, TRAIN_BATCH, seed=5)
+    carried = load_checkpoint_params(init_dir)
+    cfg32 = TuiNetConfig(num_classes=len(LABELS), dtype="float32")
+    with linear_power_features(train):
+        for name, mp in (("data=2", 1), ("model=2", 2)):
+            mesh = make_mesh(model_parallel=mp)
+            net = train.shard_params(TuiNet.from_jax_params(carried, cfg32), mesh).to(dev)
+            opt = train.make_optimizer(net, lr=1e-3)
+            step = train.make_train_step(sr=SR, hop_length=640, mesh=mesh)
+            b = TRAIN_BATCH // mesh.size(0)
+            rows = slice(data_index(mesh) * b, (data_index(mesh) + 1) * b)
+            before = bn_stats_of(net)
+            loss, acc = step(net, opt, windows[rows], labels[rows])
+            grads = train.gather_head({k: p.grad for k, p in net.named_parameters()}, mesh)
+            moved = {k: v - before[k] for k, v in bn_stats_of(net).items()}
+            ms = time_ms(lambda: step(net, opt, windows[rows], labels[rows]), TRAIN_STEPS)
+            out[name] = {"loss": float(loss), "acc": float(acc), "grads": grads,
+                         "bn_moved": moved, "step_ms": ms, "rows": b}
+    return out
+
+
+def linear_power_features(train):
+    """Context: parallel/train.py's ``features`` on linear mel power
+    (db_scale off) while it lasts. The trainer's dB features are all <= 0,
+    and TuiNet clamps its input at 0 (ROADMAP Queue 3): on them every
+    activation below the head is the same for any batch split, and the
+    convolutions and BatchNorm get no gradient, so a check of the sharded
+    step on them could not see BatchNorm's statistics."""
+    import contextlib
+
+    import torch
+
+    from audio_analysis_torch.pipeline.frontend import spectrogram_grid
+
+    def linear(pcm, n_mels, sr, hop_length, level=None):
+        with torch.no_grad():
+            return spectrogram_grid(pcm, sr=sr, hop_length=hop_length, n_fft=4096,
+                                    n_mels=n_mels, mel_break=1750.0, htk=True, power=2.0,
+                                    db_scale=False, normalize=True, level=level)
+
+    @contextlib.contextmanager
+    def swapped():
+        saved, train.features = train.features, linear
+        try:
+            yield
+        finally:
+            train.features = saved
+
+    return swapped()
+
+
+def bn_stats_of(net):
+    """{buffer name: numpy copy}: TuiNet's BatchNorm running statistics."""
+    return {k: b.detach().cpu().numpy().copy() for k, b in net.named_buffers()}
+
+
+def scaleout_train_reference(init_dir, wav):
+    """The single-process first step on the card at batch 64 on linear mel
+    power (``make_train_step``), the windows in their order and in a seeded
+    permutation: (loss, {parameter: gradient}, {buffer: running statistic's
+    change}, {leaf: relative L2 difference of the permuted batch's}). Fails
+    when a parameter's gradient is all zero."""
+    import torch
+
+    from audio_analysis_torch.io.audio import load_recording
+    from audio_analysis_torch.io.checkpoint import load_checkpoint_params
+    from audio_analysis_torch.models.birdnet import TuiNet, TuiNetConfig
+    from audio_analysis_torch.parallel import train
+
+    pcm16, _ = load_recording(wav, prefer_int16=True)
+    windows, labels = train_windows(pcm16.astype(np.float32) / 32768.0, TRAIN_BATCH, seed=5)
+    cfg32 = TuiNetConfig(num_classes=len(LABELS), dtype="float32")
+    runs = []
+    with linear_power_features(train):
+        for order in (np.arange(TRAIN_BATCH), np.random.RandomState(8).permutation(TRAIN_BATCH)):
+            net = TuiNet.from_jax_params(load_checkpoint_params(init_dir), cfg32).cuda()
+            opt = train.make_optimizer(net, lr=1e-3)
+            order = torch.from_numpy(order).cuda()
+            before = bn_stats_of(net)
+            loss, _ = train.make_train_step(sr=SR, hop_length=640)(net, opt, windows[order],
+                                                                   labels[order])
+            runs.append((float(loss),
+                         {k: p.grad.cpu().numpy() for k, p in net.named_parameters()},
+                         {k: v - before[k] for k, v in bn_stats_of(net).items()}))
+    (loss, grads, moved), (_, grads_p, moved_p) = runs
+    zero = [k for k, g in grads.items() if not g.any()]
+    if zero:
+        raise AssertionError(f"the one-process step leaves {zero} without a gradient")
+    noise = {k: rel_l2(b[k], a[k]) for a, b in ((grads, grads_p), (moved, moved_p)) for k in a}
+    return loss, grads, moved, noise
+
+
+def rel_l2(got, ref):
+    """||got - ref|| / ||ref|| (over 1 where ref is all zero)."""
+    return float(np.linalg.norm(got - ref) / (np.linalg.norm(ref) or 1.0))
+
+
+def check_scaleout(tmp, wav, wavs, exact_model, fast_models, exact_path, fast_path):
+    """The scale-out phase: (a) a world of one rank on NCCL, mesh serving of
+    the 8 WAVs under AAT_FAST=1 against the meshless analyzer in this
+    process, byte for byte; (b) two spawned gloo ranks on the card, each
+    fed 4 of the 8 WAVs at the exact level and under AAT_FAST=1: the
+    gathered list (on both ranks) equals this process's analyzer fed the
+    same two 4-WAV batches, bit for bit, and one 8-WAV batch within the
+    result contract (confidences within 1, 2 for the bf16 models), and
+    every rank launched the path's kernels; (c) in the same ranks, the
+    full-width TuiNet's first step at global batch 64 in float32 on a
+    data=2 and a model=2 mesh against this process's step, on linear mel
+    power: loss within TRAIN_LOSS_RTOL, each gradient and each BatchNorm
+    running statistic's change within TRAIN_GRAD_TOL in relative L2 or 3x
+    the permuted batch's difference. Returns the summary and each rank's
+    launches by path."""
+    import threading
+
+    import torch
+
+    from audio_analysis_torch.io.audio import load_recording
+    from audio_analysis_torch.parallel import distributed
+    from audio_analysis_torch.parallel.mesh import make_mesh
+    from audio_analysis_torch.pipeline.serve import BatchAnalyzer
+
+    t_phase = time.perf_counter()
+    timings = os.environ.pop("AAT_TIMINGS", None)
+    recs = [load_recording(w, prefer_int16=True)[0] for w in wavs]
+    summary = {"card": card_line(), "note": SCALEOUT_NOTE}
+
+    # (a) NCCL, a world of one rank
+    os.environ["AAT_FAST"] = "1"
+    distributed.initialize(backend="nccl")
+    try:
+        mesh = make_mesh()
+        meshless = BatchAnalyzer(fast_models, sr=SR, rng=None, device="cuda")
+        meshed = BatchAnalyzer(fast_models, sr=SR, rng=None, mesh=mesh)
+        ref = meshless.analyse_recordings(recs)
+        t0 = time.perf_counter()
+        got = meshed.analyse_recordings(recs)
+        torch.cuda.synchronize()
+        summary["nccl_world_of_1"] = {"wall_s": time.perf_counter() - t0,
+                                      "equal": json.dumps(got) == json.dumps(ref)}
+    finally:
+        distributed.shutdown()
+    log(json.dumps({"scaleout": "nccl world of 1", **summary["nccl_world_of_1"]}))
+    if not summary["nccl_world_of_1"]["equal"]:
+        raise AssertionError("the NCCL world of one differs from the meshless analyzer")
+    os.environ.pop("AAT_FAST")
+
+    # (b), (c): two gloo ranks on the card, while this process computes the
+    # single-process results
+    init_dir = write_tuinet_model(tmp / "train-init", seed=5)
+    box = {}
+
+    def run_ranks():
+        try:
+            box["ranks"] = distributed.spawn(
+                _scaleout_rank, SCALEOUT_RANKS,
+                args=(str(wav), [str(w) for w in wavs], str(exact_model),
+                      [str(m) for m in fast_models], str(init_dir)),
+                backend="gloo", deadline=SCALEOUT_DEADLINE)
+        except Exception as e:  # noqa: BLE001  (raised below, in this thread)
+            box["error"] = e
+
+    t0 = time.perf_counter()
+    ranks_thread = threading.Thread(target=run_ranks, daemon=True)
+    ranks_thread.start()
+    single = {}
+    for level, models in (("exact", [exact_model]), ("fast", fast_models)):
+        if level == "fast":
+            os.environ["AAT_FAST"] = "1"
+        a = BatchAnalyzer(models, sr=SR, rng=None, device="cuda")
+        half = len(recs) // SCALEOUT_RANKS
+        single[level] = {"halves": a.analyse_recordings(recs[:half])
+                         + a.analyse_recordings(recs[half:]),
+                         "whole": a.analyse_recordings(recs)}
+        os.environ.pop("AAT_FAST", None)
+    train_ref = scaleout_train_reference(init_dir, wav)
+    ranks_thread.join(SCALEOUT_DEADLINE + 60)
+    if ranks_thread.is_alive():
+        raise AssertionError("the scale-out ranks outlived their deadline")
+    if "error" in box:
+        raise box["error"]
+    ranks = box["ranks"]
+    summary["ranks_wall_s"] = time.perf_counter() - t0
+
+    launches = {}
+    for level, tol, expect in (("exact", 1, exact_path), ("fast", 2, fast_path)):
+        for r in ranks:
+            m = r[level]
+            got = m["results"]
+            if json.dumps(got) != json.dumps(single[level]["halves"]):
+                raise AssertionError(f"rank {r['rank']} {level}: the gathered list differs "
+                                     "from the same two batches in one process")
+            worst = max(compare_results(g, w, confidence_tol=tol)
+                        for g, w in zip(got, single[level]["whole"]))
+            require_launches(f"scale-out rank {r['rank']} {level}", m["launches"], expect)
+            launches[f"scaleout_{level}_rank{r['rank']}"] = m["launches"]
+            row = {"rank": r["rank"], "device": r["device"], "level": level,
+                   "recordings_fed": len(recs) // SCALEOUT_RANKS, "gathered": len(got),
+                   "cold_wall_s": m["cold_wall_s"], "warm_wall_s": m["warm_wall_s"],
+                   "gather_ms": m["gather_ms"], "timing": m["timing"],
+                   "max_confidence_diff_vs_one_batch": worst, "card": summary["card"],
+                   "note": SCALEOUT_NOTE}
+            summary.setdefault(level, []).append(row)
+            log(json.dumps({"scaleout_serving": row, "launches": m["launches"]}))
+
+    loss1, grads1, moved1, noise = train_ref
+    for mesh_name in ("data=2", "model=2"):
+        for r in ranks:
+            m = r[mesh_name]
+            rel_loss = abs(m["loss"] - loss1) / abs(loss1)
+            if rel_loss > TRAIN_LOSS_RTOL:
+                raise AssertionError(f"scale-out {mesh_name} rank {r['rank']}: loss "
+                                     f"{m['loss']} vs one process {loss1}")
+            # the worst rel / tol over the head's gradients, the other
+            # gradients (convolutions, BatchNorm, mag_a) and the running
+            # statistics' change
+            worst = {"head": 0.0, "body": 0.0, "bn_stats": 0.0}
+            for what, got, ref in (("gradient", m["grads"], grads1),
+                                   ("running statistic", m["bn_moved"], moved1)):
+                for k, g in ref.items():
+                    rel = rel_l2(got[k], g)
+                    tol = max(TRAIN_GRAD_TOL, 3 * noise[k])
+                    if got[k].shape != g.shape or rel > tol:
+                        raise AssertionError(f"scale-out {mesh_name} rank {r['rank']}: {what} "
+                                             f"{k} {rel:.3g} in relative L2 (tolerance "
+                                             f"{tol:.3g})")
+                    kind = ("bn_stats" if what != "gradient"
+                            else "head" if k.startswith("head_") else "body")
+                    worst[kind] = max(worst[kind], rel / tol)
+            row = {"mesh": mesh_name, "rank": r["rank"], "rows": m["rows"],
+                   "global_batch": TRAIN_BATCH, "loss": m["loss"], "loss_one_process": loss1,
+                   "loss_rel": rel_loss,
+                   **{f"worst_{k}_over_tol": v for k, v in worst.items()},
+                   "step_ms": m["step_ms"], "card": summary["card"], "note": SCALEOUT_NOTE}
+            summary.setdefault("train", []).append(row)
+            log(json.dumps({"scaleout_train": row}))
+    summary["phase_s"] = time.perf_counter() - t_phase
+    if timings is not None:
+        os.environ["AAT_TIMINGS"] = timings
+    return summary, launches
+
+
 def main():
     import torch
 
@@ -2260,6 +2574,12 @@ def main():
         side_launches.update(train_launches)
         log(f"training phase {time.perf_counter() - t0:.1f} s")
 
+        # scale-out: mesh serving and sharded training over torch.distributed
+        scaleout, scaleout_launches = check_scaleout(tmp, wav, wavs, model_dir, models,
+                                                     exact_path, fast_path)
+        side_launches.update(scaleout_launches)
+        log(f"scale-out phase {scaleout['phase_s']:.1f} s")
+
     out = []
     for name, m in kernels.items():
         base = name.split("[")[0]
@@ -2324,6 +2644,16 @@ def main():
         "trained_cli": training["trained_cli"]["max_confidence_diff"],
         "tuned_cli": training["tuned_cli"]["max_confidence_diff"],
         "card": training["card"]}}))
+    log(json.dumps({"scaleout_summary": {
+        "card": scaleout["card"], "note": scaleout["note"],
+        "nccl_world_of_1": scaleout["nccl_world_of_1"], "ranks_wall_s": scaleout["ranks_wall_s"],
+        "phase_s": scaleout["phase_s"]} | {
+        level: [{k: r[k] for k in ("rank", "warm_wall_s", "gather_ms",
+                                   "max_confidence_diff_vs_one_batch")} for r in scaleout[level]]
+        for level in ("exact", "fast")} | {
+        "train": [{k: r[k] for k in ("mesh", "rank", "loss_rel", "worst_head_over_tol",
+                                     "worst_body_over_tol", "worst_bn_stats_over_tol",
+                                     "step_ms")} for r in scaleout["train"]]}}))
     log(json.dumps({"kernels": out}))
     log(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -242,14 +242,26 @@ def test_sidecar_without_tracks_raises_on_both_paths(model_dir, analyzer):
 
 
 @pytest.mark.parametrize("part", ["mesh", "band-pass", "embeddings"])
-def test_unported_parts_raise(tmp_path, model_dir, part):
-    """The parts still to port raise, naming their ROADMAP item; band-pass
-    plans (item 9) and embeddings groups (item 10) are ported now and give
-    the single path's result (tests/test_torch_bandpass.py and
-    tests/test_torch_embeddings.py hold them to the JAX package)."""
+def test_later_parts_give_the_single_path_result(tmp_path, model_dir, analyzer, part):
+    """Parts ported after batch serving give the single path's result: a
+    mesh (item 12) on a gloo world of one rank, band-pass plans (item 9)
+    and embeddings groups (item 10); tests/test_torch_scaleout.py,
+    tests/test_torch_bandpass.py and tests/test_torch_embeddings.py hold
+    them to the JAX package."""
     if part == "mesh":
-        with pytest.raises(NotImplementedError, match="item 12"):
-            BatchAnalyzer([model_dir], mesh=object(), device="cpu")
+        from audio_analysis_torch.parallel import distributed
+        from audio_analysis_torch.parallel.mesh import make_mesh
+
+        distributed.initialize(device="cpu")
+        try:
+            a = BatchAnalyzer([model_dir], sr=SR, bucket_seconds=9, rng=None,
+                              mesh=make_mesh(device_type="cpu"))
+            assert a.device == torch.device("cpu")
+            (got,) = a.analyse_recordings([_rec(30)])
+        finally:
+            distributed.shutdown()
+        assert got["species_identify"]
+        assert got == analyzer.analyse_recordings([_rec(30)])[0]
     elif part == "band-pass":
         d = _model(tmp_path / "bp", filter_below=20000)
         a = BatchAnalyzer([d], sr=SR, bucket_seconds=9, rng=None, device="cpu")
