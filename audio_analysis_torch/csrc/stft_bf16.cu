@@ -85,45 +85,76 @@
 // p < n_fft >> (l + 1), one table a level, laid end to end)
 // into 2^L leaves of m_leaf = n_fft / 2^L points, leaf b holding bins
 // 2^L j + bitrev_L(b); each leaf rounded to bf16 and its DFT taken against
-// the bf16 leaf matrices C = cos, S = sin [m_leaf, bl] with float32 sums:
-// xr = r.C + i.S, xi = i.C - r.S; p = |X|^power in float32, rounded to bf16,
-// times the leaf-permuted mel rows (bf16), summed in float32. The split
-// uses explicitly rounded float32 products and sums (no fused multiply-add)
-// so it rounds as the plain version does.
-//
-// Design: a block of 16 warps owns TFD = 16 consecutive frames of one
-// window (one m16 row tile). It stages the PCM span the frames cover,
-// (TFD - 1) hop + n_fft samples, once in shared memory as bf16. The leaves
-// are taken in groups of 8: the first L - 3 levels of the split only select
-// the group's branch, the last 3 levels run in full. Warp w takes leaf
-// w % 8 of the group and half w / 8 of its bins (<= 64 a pass, so xr and xi
-// live in 64 registers). For each group, a K loop over the leaf positions in
-// chunks of KCD = 64, in two shared-memory stages: after one barrier the
-// [bins x 64] chunks of C and S for chunk c + 1 are started with cp.async,
-// the warps run mma.sync m16n8k16 on chunk c (xr += r.C + i.S, xi += i.C +
-// (-r).S: negating a bf16 operand is exact; leaf 0 is real and skips its i
-// terms), and then each thread runs the float32 split of one (frame,
-// position) of chunk c + 1 in registers and writes the group's 8 bf16 leaf
-// values (real and imaginary) to the other stage, so the split of one
-// chunk overlaps the tensor-core work of the warps still on the last one.
-// C and S are shared by the 8 leaves of the group. The epilogue computes p
-// in registers and writes it as bf16 to a [16 frames x 8 leaves x bins]
-// tile in shared memory; the mel product over that tile then runs with the
-// mel tiles split across the warps and the mel rows streamed from L2,
-// accumulating in registers across groups and bin tiles. Every output
-// element is written by one block, with no atomics, so two launches agree
-// bit for bit; an all-zero frame gives exact zeros (no sum mixes frames).
-// Offsets into a window are 64-bit.
+// the bf16 leaf matrices C = cos, S = sin [bl_p, m_pad] with float32 sums:
+// xr = C.r + S.i, xi = C.i - S.r; p = |X|^power in float32 (|X|^2 rounded
+// step by step; the square root, or any other power, on the hardware's
+// approximate units, within a few float32 ulps), rounded to bf16, times the
+// leaf-permuted mel rows (bf16), summed in float32. The split uses
+// explicitly rounded float32 products and sums (no fused multiply-add) so
+// its leaves equal the plain version's bit for bit.
 //
 // What bounds it: as a function, the bytes (the float32 PCM read once, the
 // output written once) at the main path's shapes. Its tensor-core work is
 // (2 + 4 (2^L - 1)) m_leaf bl products a frame: 3.9 MFLOP at classify
-// (n_fft 4096, L 3, bl 128) and 3.0 at the end-scan (4800, L 4, bl 80),
-// against 15.7 and 22.1 for the direct route. It runs far from both
-// bounds: mma.sync rather than wgmma, one 512-thread block per SM (128
-// registers a thread), a barrier per K chunk, and only 16 frames to share
-// each block's reads of C, S and the mel rows from L2. Left for later:
-// wgmma on 64-frame tiles with the split done by a producer warpgroup.
+// (n_fft 4096, L 3, bl 128) and 3.0 at the end-scan (4800, L 4, bl 80), a
+// quarter of the direct route's; the float32 split is ~90 k operations and
+// ~80 loads and stores a frame at the end-scan, more time than the
+// tensor-core work. The tree yields the 8 leaves of a group from the same 8
+// samples, so their accumulators stay live across the whole K loop: with
+// frames as the wgmma's 64 rows they would take twice the register file.
+// So the bins are M and (leaf, frame) is N:
+//
+//  - a work item is (window, 16 consecutive frames); persistent blocks of
+//    four warpgroups, one an SM, walk over the items;
+//  - two consumer warpgroups (setmaxnreg 184) take bins 0..63 and 64..127
+//    of a pass over a leaf group's bins (at most 128 a pass). Per k16 step
+//    four wgmma m64n128k16, A = the C or S rows (K-major, by TMA), B = the
+//    group's leaves [(leaf, frame) 128 x 16] (K-major): xr += C.R, xr +=
+//    S.I, xi += C.I, xi += (-S).R (the wgmma's scale-a of -1 is exact);
+//    leaf 0's imaginary part is zero and adds exact zeros. At the
+//    end-scan's 80 bins a leaf the second warpgroup's rows 80..127 are
+//    wasted work (M is 64 rows);
+//  - a ring of `stages` stages (3 where shared memory holds them, else 2,
+//    else 1), each a K chunk of 64 leaf positions: the pass's [tbw x 64]
+//    of C and of S by TMA (128-byte swizzle; a warpgroup's rows past tbw
+//    read the next tile and are never stored) and the group's real and
+//    imaginary leaves [128 x 64], which the split warpgroups write in the
+//    same swizzled layout. A stage's full barrier takes the TMA bytes and
+//    each split warp's arrival, its empty barrier each consumer warp's
+//    once its products are done (the consumers' waits back off, leaving
+//    the issue slots to the split): the split of chunk c + 1 runs while
+//    the consumers' wgmma run on chunk c, with no block-wide barrier (with
+//    one stage the consumers free it as soon as their products are done);
+//  - two split warpgroups (setmaxnreg 72; with one warp a scheduler the
+//    split is latency-bound) run dif_split at one position of two frames
+//    a lane, the frames sharing each window and twiddle load (a warp
+//    covers 32 positions of a frame's row: no bank conflicts), from the
+//    item's bf16 span; one of their threads starts each stage's C/S loads;
+//  - the consumers also stage each item's span, (16 - 1) hop + n_fft
+//    samples rounded to bf16, 16 bytes a load, into one of `spans` buffers
+//    (2: the next item's at the start of an item; or 1: at its end), which
+//    the split frees once it is done with the item;
+//  - after a pass each consumer thread computes p from its accumulators
+//    and stores it as bf16 into a [leaf, bin, frame] tile; the mel product
+//    then runs on the CUDA cores over each mel row's nonzero bins only. At
+//    block start the consumer warps scan melt, a warp a row, for each
+//    row's band [lo, hi] of bins with a nonzero weight (the filters are
+//    triangles some tens of bins wide) and copy the bands' weights into a
+//    list in shared memory; thread (row, 4 frames) adds w . p over the
+//    band's bins of the pass's leaf group and bin tile in bin order (a
+//    product of two bf16 values is exact in float32, so fmaf rounds once,
+//    as a separate add would). A dense mel product on the tensor cores
+//    would fetch the [mel_rows x 2^L bl_p] matrix (~0.3 MB, more than C and
+//    S) from L2 for every 16 frames, to multiply mostly zeros;
+//  - the item's [n_mels x 16] outputs are summed in registers across leaf
+//    groups and bin tiles and stored from them.
+// Every output element is summed by one thread in one fixed order, with no
+// atomics, so two launches agree bit for bit; an all-zero frame gives exact
+// zeros (no sum mixes frames); rows past n_out are never stored; offsets
+// into a window are 64-bit. A mel row whose weights are all zero gives 0
+// even where p is not finite. A wait on a barrier that never completes
+// traps (after ~2^34 clocks) rather than hang the process. Where its time
+// goes: chip_dif_breakdown.py.
 
 #include <cuda.h>  // CUtensorMap and its enums (cuTensorMapEncodeTiled comes through the runtime)
 #include <cuda_bf16.h>
@@ -139,20 +170,6 @@ namespace {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, low 16 bits
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a . b for one m16n8k16 tile (A row-major 16x16, B column-major 16x8)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float power_of(float p2, float power) {
@@ -222,8 +239,10 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+// wait until the phase of parity `parity` has completed; a waiter that is
+// not on the critical path sleeps `sleep_ns` between tries, leaving the
+// issue slots to the warps that are
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity, int sleep_ns = 0) {
   const uint32_t a = smem_u32(bar);
   long long start = 0;
   for (int spins = 0;; ++spins) {
@@ -235,6 +254,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(a), "r"(parity)
         : "memory");
     if (done) return;
+    if (sleep_ns) __nanosleep(sleep_ns);
     if ((spins & 1023) == 1023) {
       const long long now = clock64();
       if (start == 0) start = now;
@@ -290,8 +310,9 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// d[0..64) += A[64 x 16] . B[128 x 16]^T, both from shared memory (K-major,
-// 128-byte swizzle); scale_d 0 overwrites d instead
+// d[0..64) += SA A[64 x 16] . B[128 x 16]^T, both from shared memory
+// (K-major, 128-byte swizzle; SA = 1 or -1); scale_d 0 overwrites d instead
+template <int SA>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
                                                     int scale_d) {
   asm volatile(
@@ -301,7 +322,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, %67, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -313,7 +334,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(SA));
 }
 
 // d[0..16) += A[64 x 16] . B[32 x 16]^T, A from registers (each warp's 16
@@ -459,7 +480,7 @@ stft_mel_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
           wgmma_fence();
 #pragma unroll
           for (int ks = 0; ks < DK / 16; ++ks)
-            wgmma_m64n128k16_ss(acc, da + 2 * ks, db + 2 * ks, c > 0 || ks > 0);
+            wgmma_m64n128k16_ss<1>(acc, da + 2 * ks, db + 2 * ks, c > 0 || ks > 0);
           wgmma_commit();
           wgmma_wait<1>();  // the previous chunk's products are done
           if (c > 0 && lane == 0) mbar_arrive(&empty[prev]);
@@ -583,47 +604,68 @@ cudaError_t launch_direct(const CUtensorMap& mx, const CUtensorMap& mr, const CU
 // dif route
 // ---------------------------------------------------------------------------
 
-constexpr int TFD = 16;       // frames per block: one m16 row tile
-constexpr int KCD = 64;       // leaf positions per K chunk
-constexpr int LDD = KCD + 8;  // row stride (bf16) of the leaf and C/S chunks
-constexpr int GROUP = 8;      // leaves per group, one per warp
-constexpr int BTILE = 128;    // most bins of a leaf per bin tile
-constexpr int DIF_WARPS = 16;  // 8 leaves x 2 bin halves
-constexpr int DIF_THREADS = 32 * DIF_WARPS;
-constexpr int MPW = 2;        // most mel tiles of 8 per warp (256 mel rows)
-static_assert(TFD * KCD % DIF_THREADS == 0, "whole (frame, position) items a thread");
+constexpr int FD = 16;                // frames a work item
+constexpr int GROUP = 8;              // leaves a group: N = GROUP x FD = 128 columns
+constexpr int KD = 64;                // leaf positions a K chunk: a 128-byte row of bf16
+constexpr int BTILE = 128;            // most bins of a leaf a pass: 64 a consumer warpgroup
+constexpr int DIF_THREADS = 512;      // consumers 0, 1 (and span loaders); split 2, 3
+constexpr int DIF_STAGES_MAX = 3;     // ring stages
+constexpr int LEAF_TILE = GROUP * FD * KD * 2;  // a stage's R (or I) [(leaf, frame) x 64] bf16
+constexpr int MEL_MAX = 256;          // most mel rows
+constexpr int SPAN_LOADERS = 256;     // the consumer threads
+constexpr int SPAN_INFLIGHT = 8;      // 16-byte span loads in flight a loader
+constexpr int SCAN_ROWS = 4;          // mel rows a consumer warp scans at once
+constexpr int LIST_INFLIGHT = 4;      // band-list weights in flight a consumer
+static_assert(GROUP * FD == 128, "wgmma N = 128 (leaf, frame) columns");
 
 struct DifArgs {
-  const float* x;                 // [n_windows, S]
-  const float* win;               // [n_fft] Hann, float32
-  const float* twc;               // level l: cos(2 pi p / (n_fft >> l)) at n_fft - (n_fft >> l) + p
-  const float* tws;               // the same for sin
-  const __nv_bfloat16* ct;        // [bl_p, m_pad] cos(2 pi n j / m_leaf)
-  const __nv_bfloat16* st;        // [bl_p, m_pad] sin
-  const __nv_bfloat16* melt;      // [mel_rows, 2^L bl_p] leaf-permuted mel, transposed
-  float* out;                     // [n_windows, n_mels, n_out]
+  const float* x;             // [n_windows, S]
+  const float* win;           // [n_fft] Hann, float32
+  const float* twc;           // level l: cos(2 pi p / (n_fft >> l)) at n_fft - (n_fft >> l) + p
+  const float* tws;           // the same for sin
+  const __nv_bfloat16* melt;  // [mel_rows, 2^L bl_p] leaf-permuted mel, transposed
+  float* out;                 // [n_windows, n_mels, n_out]
   long S;
-  int n_fft, m_leaf, m_pad, hop, n_out, n_tiles, nb, bl_p, mel_rows, n_mels;
+  int n_fft, m_leaf, hop, n_out, n_tiles, n_items, n_chunks, bl_p, tbw, n_bt, n_mels;
+  int stages, spans, span_alloc;  // ring stages, span buffers, bf16 elements a span buffer
+  int band_cap;                   // mel weights the band list holds
   float power;
 };
 
-__device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
+__device__ __forceinline__ void sts16(unsigned char* p, __nv_bfloat16 v) {
+  *reinterpret_cast<__nv_bfloat16*>(p) = v;
 }
 
-__device__ __forceinline__ void st32(__nv_bfloat16* p, uint32_t v) {
-  *reinterpret_cast<uint32_t*>(p) = v;
+__device__ __forceinline__ void named_bar(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// 16 bytes from device memory to shared memory without passing registers
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+// order this thread's shared-memory writes before later wgmma reads of them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+
+// The hardware square root, for |X|^1 (within an ulp of the rounded one,
+// far below the bf16 rounding that follows).
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
 }
+
+// x^y as 2^(y log2 x) on the hardware's approximate units, for |X|^power
+// at a power other than 1 and 2 (a few float32 ulps, far below the bf16
+// rounding that follows; 0 stays 0)
+__device__ __forceinline__ float pow_approx(float x, float y) {
+  float r;
+  asm("lg2.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  r *= y;
+  asm("ex2.approx.f32 %0, %0;" : "+f"(r));
+  return r;
+}
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
 // (a, b) -> (a + b, (a - b) * conj-twiddle) in float32 without contraction,
 // as _dif_tree's split_c (a real branch is the case ai = bi = 0, which
@@ -635,19 +677,32 @@ __device__ __forceinline__ void dif_diff(float ar, float ai, float br, float bi,
   di_out = __fsub_rn(__fmul_rn(di, c), __fmul_rn(dr, s));
 }
 
-// The L-level split at leaf position n of frame f (span row f * hop): the
-// 8 leaves of group g, leaf g * 8 + b in (ur[b], ui[b]).
-template <int L>
+// The L-level split at leaf position n of NF frames f + 8 i (span rows
+// (f + 8 i) hop): the 8 leaves of group g, leaf g * 8 + b of frame f + 8 i
+// in (ur[i][b], ui[i][b]); zeros for n past the leaf. The frames share
+// each window and twiddle load.
+template <int L, int NF>
 __device__ __forceinline__ void dif_split(const __nv_bfloat16* span, const DifArgs& a, int f,
-                                          int n, int g, float (&ur)[GROUP], float (&ui)[GROUP]) {
+                                          int n, int g, float (&ur)[NF][GROUP],
+                                          float (&ui)[NF][GROUP]) {
   constexpr int NV = 1 << L, LG = L - 3;
-  float vr[NV], vi[NV];
-  const __nv_bfloat16* fr = span + f * a.hop;
+  if (n >= a.m_leaf) {
+#pragma unroll
+    for (int i = 0; i < NF; ++i)
+#pragma unroll
+      for (int b = 0; b < GROUP; ++b) ur[i][b] = ui[i][b] = 0.f;
+    return;
+  }
+  float vr[NF][NV], vi[NF][NV];
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int k = n + j * a.m_leaf;
-    vr[j] = __fmul_rn(__bfloat162float(fr[k]), __ldg(a.win + k));
-    vi[j] = 0.f;
+    const float w = __ldg(a.win + k);
+#pragma unroll
+    for (int i = 0; i < NF; ++i) {
+      vr[i][j] = __fmul_rn(__bfloat162float(span[(f + 8 * i) * a.hop + k]), w);
+      vi[i][j] = 0.f;
+    }
   }
   // the first LG levels keep only group g's branch (sum or difference)
 #pragma unroll
@@ -657,13 +712,18 @@ __device__ __forceinline__ void dif_split(const __nv_bfloat16* span, const DifAr
 #pragma unroll
     for (int j = 0; j < NV / 2; ++j) {
       if (j < H) {
-        const float ar = vr[j], ai = vi[j], br = vr[j + H], bi = vi[j + H];
         if (diff) {
           const int t = a.n_fft - (a.n_fft >> l) + n + j * a.m_leaf;
-          dif_diff(ar, ai, br, bi, __ldg(a.twc + t), __ldg(a.tws + t), vr[j], vi[j]);
+          const float c = __ldg(a.twc + t), s = __ldg(a.tws + t);
+#pragma unroll
+          for (int i = 0; i < NF; ++i)
+            dif_diff(vr[i][j], vi[i][j], vr[i][j + H], vi[i][j + H], c, s, vr[i][j], vi[i][j]);
         } else {
-          vr[j] = __fadd_rn(ar, br);
-          vi[j] = __fadd_rn(ai, bi);
+#pragma unroll
+          for (int i = 0; i < NF; ++i) {
+            vr[i][j] = __fadd_rn(vr[i][j], vr[i][j + H]);
+            vi[i][j] = __fadd_rn(vi[i][j], vi[i][j + H]);
+          }
         }
       }
     }
@@ -681,255 +741,508 @@ __device__ __forceinline__ void dif_split(const __nv_bfloat16* span, const DifAr
 #pragma unroll
         for (int b0 = 0; b0 < GROUP; b0 += 2) {
           if (b0 % (2 * H) == 0) {
-            const float ar = vr[b0 + j], ai = vi[b0 + j];
-            const float br = vr[b0 + j + H], bi = vi[b0 + j + H];
-            vr[b0 + j] = __fadd_rn(ar, br);
-            vi[b0 + j] = __fadd_rn(ai, bi);
-            dif_diff(ar, ai, br, bi, c, s, vr[b0 + j + H], vi[b0 + j + H]);
-          }
-        }
-      }
-    }
-  }
 #pragma unroll
-  for (int b = 0; b < GROUP; ++b) {
-    ur[b] = vr[b];
-    ui[b] = vi[b];
-  }
-}
-
-// grid (n_windows * n_tiles), DIF_THREADS threads: warp w takes leaf
-// w % 8 of the group and half w / 8 of its bins, NTH n8 bin tiles at most
-// (registers for xr and xi)
-template <int L, int NTH>
-__global__ void __launch_bounds__(DIF_THREADS, 1) stft_mel_dif_bf16_kernel(const DifArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LEAF_BUF = GROUP * 2 * TFD * LDD;  // bf16 of one stage of leaf chunks
-  const int tbw_max = min(a.bl_p, BTILE);
-  const int ldp = GROUP * tbw_max + 8;
-  __nv_bfloat16* lbuf = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][GROUP][2][TFD][LDD]
-  __nv_bfloat16* cbuf = lbuf + 2 * LEAF_BUF;                     // [2][2][tbw_max][LDD]
-  __nv_bfloat16* pbuf = cbuf + 4 * tbw_max * LDD;                // [TFD][ldp]
-  __nv_bfloat16* span = pbuf + TFD * ldp;                        // [(TFD - 1) hop + n_fft]
-  float* ob = reinterpret_cast<float*>(smem);  // [TFD][mel_rows + 1], over lbuf at the end
-
-  const int w = blockIdx.x / a.n_tiles;
-  const int t0 = (blockIdx.x - w * a.n_tiles) * TFD;
-  const int nf = min(TFD, a.n_out - t0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int lw = warp & (GROUP - 1);  // leaf of the group
-  const int bh = warp / GROUP;        // bin half: tiles bh * NTH ..
-
-  {  // the PCM span of the block's frames, rounded to bf16; zero past the last frame
-    const float* xw = a.x + (long)w * a.S;
-    const long s0 = (long)t0 * a.hop - a.n_fft / 2;
-    const int len = (nf - 1) * a.hop + a.n_fft;
-    const int span_len = (TFD - 1) * a.hop + a.n_fft;
-    for (int e0 = threadIdx.x; e0 < span_len; e0 += 4 * DIF_THREADS) {
-      float v[4];  // four loads in flight a thread
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int e = e0 + u * DIF_THREADS;
-        const long s = s0 + e;
-        v[u] = e < len && s >= 0 && s < a.S ? xw[s] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (e0 + u * DIF_THREADS < span_len) span[e0 + u * DIF_THREADS] = __float2bfloat16_rn(v[u]);
-    }
-  }
-
-  const int n_mt = a.mel_rows / 8;
-  const long mel_ld = (long)(GROUP << (L - 3)) * a.bl_p;
-  const int n_chunks = (a.m_pad + KCD - 1) / KCD;
-  float mel[MPW][4];
-#pragma unroll
-  for (int i = 0; i < MPW; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mel[i][e] = 0.f;
-
-  for (int grp = 0; grp < (1 << (L - 3)); ++grp) {
-    const bool real_leaf = grp == 0 && lw == 0;  // leaf 0: i = 0
-    for (int j0 = 0; j0 < a.bl_p; j0 += BTILE) {
-      const int tbw = min(BTILE, a.bl_p - j0);     // a multiple of 16
-      const int nt = min(2 * NTH, (a.nb - j0 + 7) / 8);  // n8 tiles that hold support bins
-
-      // the split of chunk k0 into stage `st`, (frame, position) items
-      // threadIdx.x, threadIdx.x + DIF_THREADS, ...
-      auto split_chunk = [&](int k0, int st) {
-#pragma unroll 1
-       for (int i = threadIdx.x; i < TFD * KCD; i += DIF_THREADS) {
-        const int f = i / KCD, nn = i - f * KCD, n = k0 + nn;
-        float ur[GROUP], ui[GROUP];
-        if (n < a.m_leaf) {
-          dif_split<L>(span, a, f, n, grp, ur, ui);
-        } else {
-#pragma unroll
-          for (int b = 0; b < GROUP; ++b) ur[b] = ui[b] = 0.f;
-        }
-        __nv_bfloat16* lb = lbuf + st * LEAF_BUF;
-#pragma unroll
-        for (int b = 0; b < GROUP; ++b) {
-          lb[((2 * b) * TFD + f) * LDD + nn] = __float2bfloat16_rn(ur[b]);
-          lb[((2 * b + 1) * TFD + f) * LDD + nn] = __float2bfloat16_rn(ui[b]);
-        }
-       }
-      };
-      // the C and S chunks of bins j0 .. j0 + tbw into stage `st`, copied
-      // asynchronously (cp_async_wait_all before the next barrier)
-      auto stage_cs = [&](int k0, int st) {
-        const int kc = min(KCD, a.m_pad - k0);
-        __nv_bfloat16* cb = cbuf + st * 2 * tbw_max * LDD;
-        for (int i = threadIdx.x; i < tbw * (KCD / 8); i += DIF_THREADS) {
-          const int r = i / (KCD / 8);
-          const int c = (i - r * (KCD / 8)) * 8;
-          if (c < kc) {
-            const long src = (long)(j0 + r) * a.m_pad + k0 + c;
-            cp_async16(cb + r * LDD + c, a.ct + src);
-            cp_async16(cb + (tbw_max + r) * LDD + c, a.st + src);
-          }
-        }
-      };
-
-      float xr[NTH][4], xi[NTH][4];
-#pragma unroll
-      for (int jt = 0; jt < NTH; ++jt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) xr[jt][e] = xi[jt][e] = 0.f;
-
-      // two stages: the products of chunk c overlap the split of chunk c + 1
-      __syncthreads();  // the span is staged; the last pass is done with stage 0
-      stage_cs(0, 0);
-      split_chunk(0, 0);
-      cp_async_wait_all();
-      for (int c = 0; c < n_chunks; ++c) {
-        __syncthreads();  // chunk c is staged; every warp is done with chunk c - 1
-        const int st = c & 1, kc = min(KCD, a.m_pad - c * KCD);
-        if (c + 1 < n_chunks) stage_cs((c + 1) * KCD, st ^ 1);  // in flight during the products
-        const __nv_bfloat16* lb = lbuf + st * LEAF_BUF;
-        const __nv_bfloat16* cb = cbuf + st * 2 * tbw_max * LDD;
-        for (int ks = 0; ks < kc; ks += 16) {
-          const __nv_bfloat16* ap = lb + ((2 * lw) * TFD + g) * LDD + ks + tq * 2;
-          const __nv_bfloat16* aq = ap + TFD * LDD;
-          uint32_t ar[4], ai[4], nr[4];
-          ar[0] = ld32(ap);
-          ar[1] = ld32(ap + 8 * LDD);
-          ar[2] = ld32(ap + 8);
-          ar[3] = ld32(ap + 8 * LDD + 8);
-          ai[0] = ld32(aq);
-          ai[1] = ld32(aq + 8 * LDD);
-          ai[2] = ld32(aq + 8);
-          ai[3] = ld32(aq + 8 * LDD + 8);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) nr[e] = ar[e] ^ 0x80008000u;  // -r, exact
-#pragma unroll
-          for (int jt = 0; jt < NTH; ++jt) {
-            const int jg = bh * NTH + jt;
-            if (jg < nt) {
-              const __nv_bfloat16* bc = cb + (jg * 8 + g) * LDD + ks + tq * 2;
-              const __nv_bfloat16* bs = bc + tbw_max * LDD;
-              const uint32_t c0 = ld32(bc), c1 = ld32(bc + 8);
-              const uint32_t s0 = ld32(bs), s1 = ld32(bs + 8);
-              mma_bf16(xr[jt], ar, c0, c1);
-              mma_bf16(xi[jt], nr, s0, s1);
-              if (!real_leaf) {
-                mma_bf16(xr[jt], ai, s0, s1);
-                mma_bf16(xi[jt], ai, c0, c1);
-              }
+            for (int i = 0; i < NF; ++i) {
+              const float ar = vr[i][b0 + j], ai = vi[i][b0 + j];
+              const float br = vr[i][b0 + j + H], bi = vi[i][b0 + j + H];
+              vr[i][b0 + j] = __fadd_rn(ar, br);
+              vi[i][b0 + j] = __fadd_rn(ai, bi);
+              dif_diff(ar, ai, br, bi, c, s, vr[i][b0 + j + H], vi[i][b0 + j + H]);
             }
           }
         }
-        if (c + 1 < n_chunks) split_chunk((c + 1) * KCD, st ^ 1);
-        cp_async_wait_all();
-      }
-
-      // |X|^power -> bf16 into this warp's tiles of its leaf's columns of the
-      // p tile (tiles past the support hold zeros and are written too)
-#pragma unroll
-      for (int jt = 0; jt < NTH; ++jt) {
-        const int jg = bh * NTH + jt;
-        if (jg * 8 < tbw) {
-          float p[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float r = xr[jt][e], q = xi[jt][e];
-            p[e] = power_of(__fadd_rn(__fmul_rn(r, r), __fmul_rn(q, q)), a.power);
-          }
-          __nv_bfloat16* pp = pbuf + g * ldp + lw * tbw + jg * 8 + tq * 2;
-          st32(pp, pack_bf16(p[0], p[1]));
-          st32(pp + 8 * ldp, pack_bf16(p[2], p[3]));
-        }
-      }
-      __syncthreads();
-
-      // the mel product over the group's leaves: p [16 x 8 tbw] x M, mel
-      // tiles warp, warp + 16 (the next pass writes the p tile only after
-      // its K loop's barriers)
-#pragma unroll 8
-      for (int kk = 0; kk < GROUP * tbw; kk += 16) {
-        const int lk = kk / tbw;
-        const __nv_bfloat16* ap = pbuf + g * ldp + kk + tq * 2;
-        uint32_t pa[4];
-        pa[0] = ld32(ap);
-        pa[1] = ld32(ap + 8 * ldp);
-        pa[2] = ld32(ap + 8);
-        pa[3] = ld32(ap + 8 * ldp + 8);
-        const long col = (long)(grp * GROUP + lk) * a.bl_p + j0 + (kk - lk * tbw) + tq * 2;
-#pragma unroll
-        for (int i = 0; i < MPW; ++i) {
-          const int mt = warp + DIF_WARPS * i;
-          if (mt < n_mt) {
-            const __nv_bfloat16* bp = a.melt + (long)(mt * 8 + g) * mel_ld + col;
-            mma_bf16(mel[i], pa, ldg32(bp), ldg32(bp + 8));
-          }
-        }
       }
     }
   }
-
-  __syncthreads();  // the leaf buffers become the output tile
-  const int ldo = a.mel_rows + 1;
 #pragma unroll
-  for (int i = 0; i < MPW; ++i) {
-    const int mt = warp + DIF_WARPS * i;
-    if (mt < n_mt) {
-      const int col = mt * 8 + tq * 2;
-      ob[g * ldo + col] = mel[i][0];
-      ob[g * ldo + col + 1] = mel[i][1];
-      ob[(g + 8) * ldo + col] = mel[i][2];
-      ob[(g + 8) * ldo + col + 1] = mel[i][3];
+  for (int i = 0; i < NF; ++i)
+#pragma unroll
+    for (int b = 0; b < GROUP; ++b) {
+      ur[i][b] = vr[i][b];
+      ui[i][b] = vi[i][b];
     }
+}
+
+// Work item `item`: window w, frames t0 .. t0 + 15.
+__device__ __forceinline__ void dif_item(const DifArgs& a, int item, int& w, int& t0) {
+  w = item / a.n_tiles;
+  t0 = (item - w * a.n_tiles) * FD;
+}
+
+// Where an item's span starts in its buffer: sample e of the span (window
+// element t0 hop - n_fft/2 + e) is element delta + e, delta the span start's
+// address in floats mod 4, so that 16-byte runs of the window are 8-byte
+// runs of the buffer.
+__device__ __forceinline__ int dif_delta(const DifArgs& a, int w, int t0) {
+  const long s0 = (long)t0 * a.hop - a.n_fft / 2;
+  return (int)(((long)(reinterpret_cast<uintptr_t>(a.x) >> 2) + (long)w * a.S + s0) & 3);
+}
+
+// Span loader lt (a consumer thread) stages the item's span into sp: zeros
+// outside the window and past the item's last frame.
+__device__ __forceinline__ void dif_load_span(const DifArgs& a, int w, int t0,
+                                              __nv_bfloat16* sp, int lt) {
+  const long s0 = (long)t0 * a.hop - a.n_fft / 2;
+  const float* xs = a.x + (long)w * a.S + s0;  // sample e of the span at xs[e]
+  // the span's samples inside the window and up to its last frame: e_lo .. e_hi - 1
+  const int e_lo = s0 < 0 ? (int)-s0 : 0;
+  const int e_hi = (int)min((long)(min(FD, a.n_out - t0) - 1) * a.hop + a.n_fft, a.S - s0);
+  const int delta = dif_delta(a, w, t0);
+  const int quads = a.span_alloc / 4;
+  for (int q0 = lt; q0 < quads; q0 += SPAN_INFLIGHT * SPAN_LOADERS) {
+    float4 v[SPAN_INFLIGHT];  // 16-byte loads in flight a thread
+#pragma unroll
+    for (int u = 0; u < SPAN_INFLIGHT; ++u) {
+      const int e = 4 * (q0 + u * SPAN_LOADERS) - delta;
+      if (e >= e_lo && e + 4 <= e_hi) {
+        v[u] = __ldcs(reinterpret_cast<const float4*>(xs + e));
+      } else {
+        float t[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) t[i] = e + i >= e_lo && e + i < e_hi ? xs[e + i] : 0.f;
+        v[u] = make_float4(t[0], t[1], t[2], t[3]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SPAN_INFLIGHT; ++u) {
+      const int q = q0 + u * SPAN_LOADERS;
+      const float4 t = v[u];
+      if (q < quads)
+        *reinterpret_cast<uint2*>(sp + 4 * q) = make_uint2(pack_bf16(t.x, t.y), pack_bf16(t.z, t.w));
+    }
+  }
+}
+
+// The band of each mel row m < n_mels: lo[m] .. hi[m], the bins whose
+// weight is not zero (hi[m] = -1 where none is). Consumer warp cw of 8
+// takes rows cw, cw + 8, ..., SCAN_ROWS at a time (their 8-column runs
+// spread over the lanes, SCAN_ROWS * 4 loads in flight a lane), and
+// reduces each row's first and last bin over its lanes.
+template <int L>
+__device__ __forceinline__ void dif_mel_band(const DifArgs& a, int* lo, int* hi, int ct) {
+  const int cw = ct >> 5, lane = ct & 31;
+  const int c8 = (GROUP << (L - 3)) * a.bl_p / 8;  // 8-column runs a row
+  const uint4* m8 = reinterpret_cast<const uint4*>(a.melt);
+  for (int m0 = cw; m0 < a.n_mels; m0 += 8 * SCAN_ROWS) {
+    int bmin[SCAN_ROWS], bmax[SCAN_ROWS];
+#pragma unroll
+    for (int q = 0; q < SCAN_ROWS; ++q) bmin[q] = 0x7fffffff, bmax[q] = -1;
+    for (int r0 = lane; r0 < c8; r0 += 32 * 4) {
+      uint4 v[SCAN_ROWS][4];
+#pragma unroll
+      for (int q = 0; q < SCAN_ROWS; ++q)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int m = m0 + 8 * q, r = r0 + 32 * u;
+          v[q][u] = m < a.n_mels && r < c8 ? __ldcs(m8 + (long)m * c8 + r) : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+      for (int q = 0; q < SCAN_ROWS; ++q)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const uint32_t word[4] = {v[q][u].x, v[q][u].y, v[q][u].z, v[q][u].w};
+          if (!((word[0] | word[1] | word[2] | word[3]) & 0x7fff7fffu)) continue;
+          for (int h = 0; h < 8; ++h) {
+            if ((word[h >> 1] >> (16 * (h & 1))) & 0x7fff) {
+              const int col = (r0 + 32 * u) * 8 + h, leaf = col / a.bl_p;
+              const int bin = ((col - leaf * a.bl_p) << L) | (int)(__brev(leaf) >> (32 - L));
+              bmin[q] = min(bmin[q], bin);
+              bmax[q] = max(bmax[q], bin);
+            }
+          }
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < SCAN_ROWS; ++q) {
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        bmin[q] = min(bmin[q], __shfl_xor_sync(0xffffffffu, bmin[q], d));
+        bmax[q] = max(bmax[q], __shfl_xor_sync(0xffffffffu, bmax[q], d));
+      }
+      if (lane == 0 && m0 + 8 * q < a.n_mels) {
+        lo[m0 + 8 * q] = bmin[q];
+        hi[m0 + 8 * q] = bmax[q];
+      }
+    }
+  }
+}
+
+// Each row's band weights in bin order, into the band list; the bands
+// packed, lo[m] = lo | hi << 16 (-1 where none), hi[m] the row's offset in
+// the list and hi[n_mels] its length (where that exceeds band_cap the mel
+// passes read melt instead); consumer thread ct of 256, between barriers.
+// The entries are spread over the threads, LIST_INFLIGHT loads in flight
+// each.
+template <int L>
+__device__ __forceinline__ void dif_band_list(const DifArgs& a, int* lo, int* hi,
+                                              unsigned short* wband, int ct) {
+  if (ct < 32) {  // lo[m] becomes lo | hi << 16 (-1: no band), hi[m] the row's list offset
+    const int per = (a.n_mels + 31) / 32, m0 = ct * per;  // lane ct's rows, in order
+    int width[MEL_MAX / 32], sum = 0;
+#pragma unroll
+    for (int i = 0; i < MEL_MAX / 32; ++i) {
+      const int m = m0 + i;
+      width[i] = i < per && m < a.n_mels && hi[m] >= 0 ? hi[m] - lo[m] + 1 : 0;
+      sum += width[i];
+    }
+    int incl = sum;  // inclusive scan of the lanes' sums
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, incl, d);
+      if (ct >= d) incl += up;
+    }
+    int o = incl - sum;
+#pragma unroll
+    for (int i = 0; i < MEL_MAX / 32; ++i) {
+      const int m = m0 + i;
+      if (i < per && m < a.n_mels) {
+        lo[m] = width[i] ? lo[m] | hi[m] << 16 : -1;
+        hi[m] = o;
+        o += width[i];
+      }
+    }
+    if (ct == 31) hi[a.n_mels] = incl;
+  }
+  named_bar(1, 256);
+  const int* woff = hi;
+  const int total = woff[a.n_mels];
+  if (total > a.band_cap) return;
+  const unsigned short* m16 = reinterpret_cast<const unsigned short*>(a.melt);
+  const int mel_cols = (GROUP << (L - 3)) * a.bl_p;
+  for (int e0 = ct; e0 < total; e0 += LIST_INFLIGHT * 256) {
+    unsigned short v[LIST_INFLIGHT];
+#pragma unroll
+    for (int u = 0; u < LIST_INFLIGHT; ++u) {
+      const int e = e0 + u * 256;
+      v[u] = 0;
+      if (e < total) {
+        int m0 = 0, m1 = a.n_mels;  // the row: the last m with woff[m] <= e
+        while (m1 - m0 > 1) {
+          const int mid = (m0 + m1) >> 1;
+          if (woff[mid] <= e) m0 = mid; else m1 = mid;
+        }
+        const int bin = (lo[m0] & 0xffff) + e - woff[m0];
+        const int leaf = (int)(__brev(bin & ((1 << L) - 1)) >> (32 - L));
+        v[u] = __ldcs(m16 + (long)m0 * mel_cols + leaf * a.bl_p + (bin >> L));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < LIST_INFLIGHT; ++u)
+      if (e0 + u * 256 < total) wband[e0 + u * 256] = v[u];
+  }
+}
+
+// The mel bands and the band list at block start, out of line: its
+// registers and code stay out of the consumers' loop.
+template <int L>
+__device__ __noinline__ void dif_bands(const DifArgs& a, int* lo, int* hi, unsigned short* wband,
+                                       int ct) {
+  dif_mel_band<L>(a, lo, hi, ct);
+  named_bar(1, 256);
+  dif_band_list<L>(a, lo, hi, wband, ct);
+  named_bar(1, 256);
+}
+
+// The mel rows over one pass's p tile (leaf group grp, bins j0 .. j0 + tbw
+// of each leaf): thread ct takes rows ct / 4 + 64 r and frames 4 (ct % 4)
+// .. + 3, and adds w . p over the row's band in bin order.
+template <int L>
+__device__ __forceinline__ void dif_mel_pass(const DifArgs& a, const int* lo, const int* woff,
+                                             const unsigned short* wband,
+                                             const __nv_bfloat16* ptile, int grp, int j0, int ct,
+                                             float (&mel)[4][4]) {
+  constexpr int R = L - 3;  // a bin's leaf is in group grp iff bin % 2^R == bitrev_R(grp)
+  int res = 0;
+  if constexpr (R > 0) res = (int)(__brev(grp) >> (32 - R));
+  const int mel_cols = (GROUP << R) * a.bl_p;
+  const int b_lo = j0 << L, b_hi = ((j0 + a.tbw) << L) - 1;
+  const bool listed = woff[a.n_mels] <= a.band_cap;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int m = (ct >> 2) + 64 * r;
+    const int band = m < a.n_mels ? lo[m] : -1;
+    if (band >= 0) {
+      int b0 = max(band & 0xffff, b_lo);
+      const int b1 = min(band >> 16, b_hi);
+      b0 += (res - b0) & ((1 << R) - 1);
+      const unsigned short* row =
+          reinterpret_cast<const unsigned short*>(a.melt) + (long)m * mel_cols;
+      const unsigned short* wl = wband + woff[m] - (band & 0xffff);
+#pragma unroll 2
+      for (int bin = b0; bin <= b1; bin += 1 << R) {
+        const int leaf = (int)(__brev(bin & ((1 << L) - 1)) >> (32 - L));
+        const int j = (bin >> L) - j0;
+        const uint32_t w16 = listed ? wl[bin] : __ldg(row + leaf * a.bl_p + j0 + j);
+        const float wv = __uint_as_float(w16 << 16);
+        const uint2 pv = *reinterpret_cast<const uint2*>(
+            ptile + ((leaf & (GROUP - 1)) * a.tbw + j) * FD + 4 * (ct & 3));
+        mel[r][0] = fmaf(wv, bf16_lo(pv.x), mel[r][0]);
+        mel[r][1] = fmaf(wv, bf16_hi(pv.x), mel[r][1]);
+        mel[r][2] = fmaf(wv, bf16_lo(pv.y), mel[r][2]);
+        mel[r][3] = fmaf(wv, bf16_hi(pv.y), mel[r][3]);
+      }
+    }
+  }
+}
+
+// Persistent: block b takes work items b, b + gridDim.x, ... (dif_item).
+template <int L>
+__global__ void __launch_bounds__(DIF_THREADS, 1)
+stft_mel_dif_bf16_kernel(const __grid_constant__ CUtensorMap map_c,
+                         const __grid_constant__ CUtensorMap map_s, const DifArgs a) {
+  constexpr int NG = 1 << (L - 3);  // leaf groups
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  const int cs_bytes = a.tbw * KD * 2;  // a stage's C (or S): [tbw bins x 64] bf16
+  const int stage_bytes = 2 * cs_bytes + 2 * LEAF_TILE;  // C, S, then R, I
+  __nv_bfloat16* ptile = reinterpret_cast<__nv_bfloat16*>(smem + a.stages * stage_bytes);
+  __nv_bfloat16* spans = ptile + GROUP * a.tbw * FD;  // [spans][span_alloc]
+  int* lo = reinterpret_cast<int*>(spans + a.spans * a.span_alloc);
+  int* hi = lo + MEL_MAX + 4;  // [MEL_MAX + 4] each
+  unsigned short* wband = reinterpret_cast<unsigned short*>(hi + MEL_MAX + 4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(wband + a.band_cap);
+  uint64_t* empty = full + DIF_STAGES_MAX;
+  uint64_t* span_full = empty + DIF_STAGES_MAX;
+  uint64_t* span_empty = span_full + 2;
+
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DIF_STAGES_MAX; ++s) {
+      mbar_init(&full[s], 1 + 8);  // the TMA issuer's arrival with the bytes; each split warp's
+      mbar_init(&empty[s], 8);     // each consumer warp's
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&span_full[b], 8);   // each consumer warp's, once it has staged the span
+      mbar_init(&span_empty[b], 8);  // each split warp's, once it is done with the item
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  float* ow = a.out + (long)w * a.n_mels * a.n_out + t0;
-  for (int i = threadIdx.x; i < a.n_mels * TFD; i += DIF_THREADS) {
-    const int m = i / TFD;
-    const int f = i - m * TFD;
-    if (f < nf) ow[(long)m * a.n_out + f] = ob[f * ldo + m];
+
+  if (wg >= 2) {
+    // ---- the split: the group's leaves of each chunk into the ring; thread
+    // 256 also starts the chunk's C and S loads ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n" ::: "memory");
+    const int st = threadIdx.x - 256, sw = st >> 5;  // split warp 0..7: frames sw, sw + 8
+    int it = 0, k = 0;
+    for (int item = blockIdx.x; item < a.n_items; item += gridDim.x, ++k) {
+      const int b = k % a.spans;
+      mbar_wait(&span_full[b], (k / a.spans) & 1);
+      int w, t0;
+      dif_item(a, item, w, t0);
+      const __nv_bfloat16* sp = spans + b * a.span_alloc + dif_delta(a, w, t0);
+      for (int pass = 0; pass < NG * a.n_bt; ++pass) {
+        const int grp = pass / a.n_bt;
+        for (int c = 0; c < a.n_chunks; ++c, ++it) {
+          const int s = it % a.stages;
+          unsigned char* sg = smem + s * stage_bytes;
+          mbar_wait(&empty[s], ((it / a.stages) & 1) ^ 1);
+          if (st == 0) {
+            mbar_expect_tx(&full[s], 2 * cs_bytes);
+            tma_load_2d(sg, &map_c, &full[s], c * KD, (pass % a.n_bt) * BTILE);
+            tma_load_2d(sg + cs_bytes, &map_s, &full[s], c * KD, (pass % a.n_bt) * BTILE);
+          }
+          unsigned char* rt = sg + 2 * cs_bytes;  // R; I at + LEAF_TILE
+#pragma unroll 1
+          for (int h = 0; h < 2; ++h) {  // chunk positions lane, 32 + lane of frames sw, sw + 8
+            const int kk = 32 * h + lane;
+            float ur[2][GROUP], ui[2][GROUP];
+            dif_split<L, 2>(sp, a, sw, c * KD + kk, grp, ur, ui);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              // row leaf * 16 + f, position kk of the chunk, 128-byte swizzle
+              const int f = sw + 8 * i;
+              const int off = f * 128 + (((kk >> 3) ^ (f & 7)) << 4) + ((kk & 7) << 1);
+#pragma unroll
+              for (int lf = 0; lf < GROUP; ++lf) {
+                sts16(rt + lf * FD * 128 + off, __float2bfloat16_rn(ur[i][lf]));
+                sts16(rt + LEAF_TILE + lf * FD * 128 + off, __float2bfloat16_rn(ui[i][lf]));
+              }
+            }
+          }
+          fence_async_smem();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&full[s]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&span_empty[b]);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns bins wg*64 .. wg*64 + 63 of a pass ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 184;\n" ::: "memory");
+  const int ct = threadIdx.x, warp = (ct >> 5) & 3, g = lane >> 2, q = lane & 3;
+  dif_bands<L>(a, lo, hi, wband, ct);
+
+  // The consumers stage the spans: item k + 1's at the start of item k
+  // (two buffers), else at its end, once the split is done with item k.
+  auto stage_span = [&](int item, int k) {
+    const int b = k % a.spans;
+    mbar_wait(&span_empty[b], ((k / a.spans) & 1) ^ 1);
+    int w, t0;
+    dif_item(a, item, w, t0);
+    dif_load_span(a, w, t0, spans + b * a.span_alloc, ct);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&span_full[b]);
+  };
+  if (blockIdx.x < a.n_items) stage_span(blockIdx.x, 0);
+
+  const bool rows = wg * 64 < a.tbw;  // this warpgroup holds some of a pass's bins
+  int it = 0, k = 0;
+  for (int item = blockIdx.x; item < a.n_items; item += gridDim.x, ++k) {
+    const bool next = item + (int)gridDim.x < a.n_items;
+    if (next && a.spans == 2) stage_span(item + gridDim.x, k + 1);
+    int w, t0;
+    dif_item(a, item, w, t0);
+    float mel[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mel[r][e] = 0.f;
+
+    for (int pass = 0; pass < NG * a.n_bt; ++pass) {
+      // xr, xi [64 bins x (leaf, frame) 128]: n8 tile i is leaf i / 2, frames
+      // 8 (i % 2) + 2q, + 1; element 4i + 2h + e is bin g + 8h of the warp's
+      // 16. A warpgroup without bins in the pass (tbw <= 64) multiplies rows
+      // of the stage that it never stores: a branch around the wgmma would
+      // serialize them.
+      float xr[64], xi[64];
+      int prev = -1;  // the stage whose products may still run
+      for (int c = 0; c < a.n_chunks; ++c, ++it) {
+        const int s = it % a.stages;
+        mbar_wait(&full[s], (it / a.stages) & 1, 64);
+        const unsigned char* st = smem + s * stage_bytes;
+        const uint64_t dc = sw128_desc(st + wg * 64 * 128);
+        const uint64_t ds = sw128_desc(st + cs_bytes + wg * 64 * 128);
+        const uint64_t dr = sw128_desc(st + 2 * cs_bytes);
+        const uint64_t di = sw128_desc(st + 2 * cs_bytes + LEAF_TILE);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KD / 16; ++ks) {  // the leaf products
+          const int acc = c > 0 || ks > 0;
+          wgmma_m64n128k16_ss<1>(xr, dc + 2 * ks, dr + 2 * ks, acc);
+          wgmma_m64n128k16_ss<1>(xr, ds + 2 * ks, di + 2 * ks, 1);
+          wgmma_m64n128k16_ss<1>(xi, dc + 2 * ks, di + 2 * ks, acc);
+          wgmma_m64n128k16_ss<-1>(xi, ds + 2 * ks, dr + 2 * ks, 1);
+        }
+        wgmma_commit();
+        if (a.stages > 1) {
+          wgmma_wait<1>();  // the previous chunk's products are done
+          if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+          prev = s;
+        } else {  // one stage: free it before the next chunk can fill it
+          wgmma_wait<0>();
+          if (lane == 0) mbar_arrive(&empty[s]);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(xr);
+      fence_regs(xi);
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+
+      // |X|^2 in place of xr, then |X|^power (the branch taken once, outside
+      // the unrolled loops)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) xr[e] = __fadd_rn(__fmul_rn(xr[e], xr[e]), __fmul_rn(xi[e], xi[e]));
+      if (a.power == 1.f) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e) xr[e] = sqrt_approx(xr[e]);
+      } else if (a.power != 2.f) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e) xr[e] = pow_approx(xr[e], 0.5f * a.power);
+      }
+      named_bar(1, 256);  // every consumer is done with the last pass's p tile
+      if (rows) {
+        // rounded to bf16 into the p tile [leaf][bin][frame]
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = wg * 64 + warp * 16 + g + 8 * h;
+            if (j < a.tbw)
+              *reinterpret_cast<uint32_t*>(ptile + ((i >> 1) * a.tbw + j) * FD + 8 * (i & 1) +
+                                           2 * q) = pack_bf16(xr[4 * i + 2 * h], xr[4 * i + 2 * h + 1]);
+          }
+        }
+      }
+      named_bar(1, 256);  // the p tile is whole
+      dif_mel_pass<L>(a, lo, hi, wband, ptile, pass / a.n_bt, (pass % a.n_bt) * BTILE, ct, mel);
+    }
+
+    // the item's outputs: rows ct / 4 + 64 r, frames t0 + 4 (ct % 4) ..
+    float* ow = a.out + (long)w * a.n_mels * a.n_out;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int m = (ct >> 2) + 64 * r;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = t0 + 4 * (ct & 3) + e;
+        if (m < a.n_mels && t < a.n_out) ow[(long)m * a.n_out + t] = mel[r][e];
+      }
+    }
+    if (next && a.spans == 1) stage_span(item + gridDim.x, k + 1);
   }
 }
 
-size_t dif_smem_bytes(int hop, int n_fft, int bl_p) {
-  const size_t tbw = bl_p < BTILE ? bl_p : BTILE;
-  const size_t span = ((size_t)(TFD - 1) * hop + n_fft + 7) / 8 * 8;
-  return sizeof(__nv_bfloat16) *
-         (2 * (size_t)GROUP * 2 * TFD * LDD + 4 * tbw * LDD + TFD * (GROUP * tbw + 8) + span);
+// Mel weights the band list holds: every bin of the leaves in two
+// triangular filters at most, and one more a row; a multiple of 8.
+int dif_band_cap(int levels, int bl_p, int mel_rows) {
+  return ((2 << levels) * bl_p + mel_rows + 7) / 8 * 8;
 }
 
-template <int L, int NTH>
-cudaError_t launch_dif(int n_blocks, cudaStream_t st, const DifArgs& a) {
-  const size_t smem = dif_smem_bytes(a.hop, a.n_fft, a.bl_p);
-  const cudaError_t err = allow_smem((const void*)stft_mel_dif_bf16_kernel<L, NTH>, smem);
+// Shared memory of one dif block, in bytes (ops/melspec.py :: dif_smem sizes
+// it the same): 1024 for alignment, the ring, the p tile, the span buffers
+// (each (16 - 1) hop + n_fft samples and 3 of alignment, rounded up to 8),
+// the mel bands and list offsets, the band list, and 10 barriers.
+size_t dif_smem_bytes(int hop, int n_fft, int levels, int bl_p, int mel_rows, int stages,
+                      int spans) {
+  const size_t tbw = bl_p < BTILE ? bl_p : BTILE;
+  const size_t span = ((size_t)(FD - 1) * hop + n_fft + 3 + 7) / 8 * 8;
+  return 1024 + (size_t)stages * (2 * tbw * KD * 2 + 2 * (size_t)LEAF_TILE) +
+         (size_t)GROUP * tbw * FD * 2 + (size_t)spans * span * 2 + (2 * MEL_MAX + 8) * 4 +
+         (size_t)dif_band_cap(levels, bl_p, mel_rows) * 2 +
+         (2 * DIF_STAGES_MAX + 4) * sizeof(uint64_t);
+}
+
+// (ring stages, span buffers), the first that fits
+constexpr int DIF_PLANS[4][2] = {{3, 2}, {2, 2}, {2, 1}, {1, 1}};
+
+struct DifDevice {
+  int sms = 0, optin = 0;
+};
+
+// The current device's SMs and opt-in shared memory a block, queried once
+// per device.
+cudaError_t dif_device(DifDevice& d) {
+  static std::mutex mu;
+  static std::map<int, DifDevice> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  stft_mel_dif_bf16_kernel<L, NTH><<<n_blocks, DIF_THREADS, smem, st>>>(a);
-  return cudaGetLastError();
+  std::lock_guard<std::mutex> lock(mu);
+  auto found = cache.find(dev);
+  if (found == cache.end()) {
+    DifDevice q;
+    err = cudaDeviceGetAttribute(&q.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&q.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    found = cache.emplace(dev, q).first;
+  }
+  d = found->second;
+  return cudaSuccess;
 }
 
 template <int L>
-cudaError_t launch_dif_l(int n_blocks, cudaStream_t st, const DifArgs& a) {
-  // registers for xr and xi: 5 n8 tiles a warp up to 80 bins a leaf, else 8
-  return a.bl_p <= 80 ? launch_dif<L, 5>(n_blocks, st, a) : launch_dif<L, 8>(n_blocks, st, a);
+cudaError_t launch_dif(const CUtensorMap& mc, const CUtensorMap& ms, const DifArgs& a,
+                       size_t smem, int grid, cudaStream_t st) {
+  const cudaError_t err = allow_smem((const void*)stft_mel_dif_bf16_kernel<L>, smem);
+  if (err != cudaSuccess) return err;
+  stft_mel_dif_bf16_kernel<L><<<grid, DIF_THREADS, smem, st>>>(mc, ms, a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1025,7 +1338,9 @@ int aat_stft_mel_bf16_smem(int mel_rows) { return (int)direct_smem(mel_rows); }
 // bf16 (the leaf-permuted mel matrix, transposed, zero rows past n_mels);
 // out [n_windows, n_mels, n_out] float32. levels 3..5; m_pad a multiple of
 // 16; bl_p a multiple of 16 up to 128, else of 128; mel_rows a multiple of
-// 8 up to 256.
+// 8 up to 256. Returns cudaErrorInvalidValue where no plan's shared memory
+// fits the device (dif_smem_bytes) and cudaErrorNotSupported where
+// cuTensorMapEncodeTiled refuses a tensor map.
 int aat_stft_mel_dif_bf16(const void* x, const void* win, const void* twc, const void* tws,
                           const void* ct, const void* st, const void* melt, void* out,
                           int n_windows, long S, int n_fft, int levels, int m_pad, int hop,
@@ -1034,38 +1349,71 @@ int aat_stft_mel_dif_bf16(const void* x, const void* win, const void* twc, const
   if (n_windows <= 0 || n_out <= 0) return 0;
   if (levels < 3 || levels > 5 || n_fft % (1 << levels) || m_pad % 16 ||
       m_pad < (n_fft >> levels) || bl_p % 16 || bl_p <= 0 || (bl_p > BTILE && bl_p % BTILE) ||
-      nb > bl_p || nb <= 0 || mel_rows % 8 || mel_rows > 8 * DIF_WARPS * MPW || n_mels > mel_rows ||
+      nb > bl_p || nb <= 0 || mel_rows % 8 || mel_rows > MEL_MAX || n_mels > mel_rows ||
       hop <= 0)
     return (int)cudaErrorInvalidValue;
+  DifDevice dev;
+  cudaError_t err = dif_device(dev);
+  if (err != cudaSuccess) return (int)err;
+  int stages = 0, spans = 0;
+  size_t smem = 0;
+  for (const auto& plan : DIF_PLANS) {
+    smem = dif_smem_bytes(hop, n_fft, levels, bl_p, mel_rows, plan[0], plan[1]);
+    if (smem <= (size_t)dev.optin) {
+      stages = plan[0];
+      spans = plan[1];
+      break;
+    }
+  }
+  if (!stages) return (int)cudaErrorInvalidValue;
+  const long n_tiles = ((long)n_out + FD - 1) / FD;
+  if ((long)n_windows * n_tiles > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   DifArgs a;
   a.x = (const float*)x;
   a.win = (const float*)win;
   a.twc = (const float*)twc;
   a.tws = (const float*)tws;
-  a.ct = (const __nv_bfloat16*)ct;
-  a.st = (const __nv_bfloat16*)st;
   a.melt = (const __nv_bfloat16*)melt;
   a.out = (float*)out;
   a.S = S;
   a.n_fft = n_fft;
   a.m_leaf = n_fft >> levels;
-  a.m_pad = m_pad;
   a.hop = hop;
   a.n_out = n_out;
-  a.n_tiles = (n_out + TFD - 1) / TFD;
-  a.nb = nb;
+  a.n_tiles = (int)n_tiles;
+  a.n_items = (int)(n_windows * n_tiles);
+  a.n_chunks = (m_pad + KD - 1) / KD;
   a.bl_p = bl_p;
-  a.mel_rows = mel_rows;
+  a.tbw = bl_p < BTILE ? bl_p : BTILE;
+  a.n_bt = bl_p / a.tbw;
   a.n_mels = n_mels;
+  a.stages = stages;
+  a.spans = spans;
+  a.span_alloc = (int)(((long)(FD - 1) * hop + n_fft + 3 + 7) / 8 * 8);
+  a.band_cap = dif_band_cap(levels, bl_p, mel_rows);
   a.power = power;
-  if ((long)n_windows * a.n_tiles > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  const int n_blocks = n_windows * a.n_tiles;
+
+  CUtensorMap mc, ms;
+  const cuuint64_t dims[2] = {(cuuint64_t)m_pad, (cuuint64_t)bl_p};
+  const cuuint64_t stride[1] = {(cuuint64_t)m_pad * 2};
+  const cuuint32_t box[2] = {KD, (cuuint32_t)a.tbw};
+  if (!encode_bf16(&mc, ct, 2, dims, stride, box) || !encode_bf16(&ms, st, 2, dims, stride, box))
+    return (int)cudaErrorNotSupported;
+  const int grid = a.n_items < dev.sms ? a.n_items : dev.sms;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (levels) {
-    case 3: return (int)launch_dif_l<3>(n_blocks, s, a);
-    case 4: return (int)launch_dif_l<4>(n_blocks, s, a);
-    default: return (int)launch_dif_l<5>(n_blocks, s, a);
+    case 3: return (int)launch_dif<3>(mc, ms, a, smem, grid, s);
+    case 4: return (int)launch_dif<4>(mc, ms, a, smem, grid, s);
+    default: return (int)launch_dif<5>(mc, ms, a, smem, grid, s);
   }
+}
+
+// Shared memory of one dif block, in bytes, for a plan of `stages` ring
+// stages and `spans` span buffers (ops/melspec.py :: dif_smem sizes it the
+// same).
+int aat_stft_mel_dif_bf16_smem(int hop, int n_fft, int levels, int bl_p, int mel_rows,
+                               int stages, int spans) {
+  return (int)dif_smem_bytes(hop, n_fft, levels, bl_p, mel_rows, stages, spans);
 }
 
 }  // extern "C"

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "aat_stft_mel_bf16_smem": [_I],
     "aat_stft_mel_dif_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _F, _P],
+    "aat_stft_mel_dif_bf16_smem": [_I, _I, _I, _I, _I, _I, _I],
     "aat_row_medians": [_P, _P, _P, _I, _I, _I, _P],
     "aat_col_medians": [_P, _P, _I, _I, _I, _P],
 }
@@ -139,6 +140,13 @@ def build_log() -> str:
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(device: torch.device) -> int:
+    """Shared memory a block of a CUDA device may opt in to, in bytes."""
+    with torch.cuda.device(device):
+        return library().aat_smem_optin()
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -313,7 +313,7 @@ def stft_mel(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
     fb, lo, hi = _mel_consts(int(sr), int(n_mels), float(fmin), float(fmax), n_fft,
                              float(break_freq), bool(htk), dev)
     lib = cuda.library()
-    route, tf = stft_plan(n_fft, fb.shape[1], mel=True, cap=lib.aat_smem_optin())
+    route, tf = stft_plan(n_fft, fb.shape[1], mel=True, cap=cuda.smem_optin(dev))
     consts = _dft_consts(n_fft, route, dev)
     win, cs, sn = consts[:3]
     out = torch.empty((n, n_mels, n_out), dtype=torch.float32, device=dev)
@@ -349,7 +349,7 @@ def stft_mag(y, *, n_fft, hop_length, power=1.0):
     n_fft = int(n_fft)
     n_frames = stft_frames(t, n_fft, hop_length)
     lib = cuda.library()
-    route, tf = stft_plan(n_fft, n_fft // 2 + 1, mel=False, cap=lib.aat_smem_optin())
+    route, tf = stft_plan(n_fft, n_fft // 2 + 1, mel=False, cap=cuda.smem_optin(y.device))
     consts = _dft_consts(n_fft, route, y.device)
     win, cs, sn = consts[:3]
     out = torch.empty((b, n_fft // 2 + 1, n_frames), dtype=torch.float32, device=y.device)
@@ -485,10 +485,12 @@ def stft_mel_bf16_plain(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
 # ---------------------------------------------------------------------------
 
 DIF_MAX_LEVELS = 5  # the kernel is built for 3, 4 and 5 levels
-DIF_FRAMES = 16  # frames a block of the dif kernel
-DIF_K_CHUNK = 64  # leaf positions a K chunk; rows of LDD = 72 bf16
-DIF_GROUP = 8  # leaves a group, one per warp
-DIF_BIN_TILE = 128  # most bins of a leaf a pass
+DIF_FRAMES = 16  # frames a work item: N = 8 leaves x 16 frames = 128 columns
+DIF_K_CHUNK = 64  # leaf positions a K chunk: a 128-byte row of bf16
+DIF_GROUP = 8  # leaves a group
+DIF_BIN_TILE = 128  # most bins of a leaf a pass: 64 a consumer warpgroup
+DIF_MEL_MAX = 256  # most mel rows
+DIF_PLANS = ((3, 2), (2, 2), (2, 1), (1, 1))  # (ring stages, span buffers), the first that fits
 
 
 def bf16_route(n_fft: int) -> str:
@@ -523,15 +525,46 @@ def dif_leaf_width(bins_per_leaf: int) -> int:
     return -(-bins_per_leaf // tile) * tile
 
 
-def dif_smem(hop: int, n_fft: int, bl: int) -> int:
+def dif_pass_width(bl: int) -> int:
+    """Bins of a leaf a pass of the dif kernel (the p tile's and the mel
+    product's width); a leaf of more bins takes bl / 128 passes."""
+    return min(bl, DIF_BIN_TILE)
+
+
+def dif_span_alloc(hop: int, n_fft: int) -> int:
+    """bf16 elements of a span buffer: (16 - 1) hop + n_fft samples and 3
+    of alignment, rounded up to 8."""
+    return -(-((DIF_FRAMES - 1) * hop + n_fft + 3) // 8) * 8
+
+
+def dif_band_cap(levels: int, bl: int, mel_rows: int) -> int:
+    """Mel weights the dif block's band list holds: every bin of the leaves
+    in two triangular filters at most, and one more a row; a multiple of
+    8. Bands beyond it are read from the mel matrix instead."""
+    return -(-((2 << levels) * bl + mel_rows) // 8) * 8
+
+
+def dif_smem(hop: int, n_fft: int, levels: int, bl: int, mel_rows: int, stages: int = 2,
+             spans: int = 2) -> int:
     """Shared memory of one dif block, in bytes, as ``csrc/stft_bf16.cu``
-    sizes it: two stages of the 8 leaves' chunks and of the C and S
-    chunks, the p tile and the bf16 PCM span of 16 frames."""
-    tbw = min(bl, DIF_BIN_TILE)
-    ldd = DIF_K_CHUNK + 8
-    span = -(-((DIF_FRAMES - 1) * hop + n_fft) // 8) * 8
-    return 2 * (2 * DIF_GROUP * 2 * DIF_FRAMES * ldd + 4 * tbw * ldd
-                + DIF_FRAMES * (DIF_GROUP * tbw + 8) + span)
+    sizes it: 1024 of alignment, `stages` ring stages (the pass's C and S
+    chunks [width x 64] and the group's real and imaginary leaves [128 x
+    64], bf16), the p tile [8 leaves x width x 16 frames] bf16, `spans`
+    span buffers, the mel bands and list offsets [2 x 260] int32, the band
+    list's weights (bf16) and 10 barriers."""
+    width = dif_pass_width(bl)
+    stage = 2 * width * DIF_K_CHUNK * 2 + 2 * DIF_GROUP * DIF_FRAMES * DIF_K_CHUNK * 2
+    return (1024 + stages * stage + DIF_GROUP * width * DIF_FRAMES * 2
+            + spans * dif_span_alloc(hop, n_fft) * 2 + (2 * DIF_MEL_MAX + 8) * 4
+            + dif_band_cap(levels, bl, mel_rows) * 2 + 10 * 8)
+
+
+def dif_plan(hop: int, n_fft: int, levels: int, bl: int, mel_rows: int, cap: int):
+    """(ring stages, span buffers): the first of ``DIF_PLANS`` whose block
+    fits `cap` bytes of shared memory, as the kernel's launcher picks it;
+    None where none fits."""
+    return next((p for p in DIF_PLANS
+                 if dif_smem(hop, n_fft, levels, bl, mel_rows, *p) <= cap), None)
 
 
 def _dif_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk, device):
@@ -694,7 +727,8 @@ def stft_mel_bf16(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
     if route == "dif":
         win, twc, tws, ct, st, melt, levels, nb, bl = _dif_consts(
             sr, n_mels, fmin, fmax, n_fft, break_freq, htk, windows.device)
-        if dif_smem(int(hop_length), int(n_fft), bl) > lib.aat_smem_optin():
+        if dif_plan(int(hop_length), int(n_fft), levels, bl, melt.shape[0],
+                    cuda.smem_optin(windows.device)) is None:
             raise ValueError(f"stft_mel_bf16: hop {hop_length} and n_fft {n_fft}: a block's "
                              "PCM span does not fit in shared memory")
         rc = lib.aat_stft_mel_dif_bf16(

@@ -6,9 +6,12 @@ source ``csrc/stft_bf16.cu``) and the row medians' radix select
   ``_melspec_core_dif`` at exact=0 (Pallas interpret mode) and a float64
   oracle, and its constants against the JAX package's;
 - the route choice (``bf16_route``, the JAX package's ``_use_dif``);
-- a numpy transcription of the dif kernel (its span staging, group and
-  split order, twiddle indexing, leaf offsets and padded leaf width)
-  against the plain version and ``np.fft.rfft``;
+- a numpy transcription of the dif kernel's tiling (16-frame items, the
+  aligned span buffer, 64-position K chunks of the (leaf, frame) rows, the
+  pass's C/S rows, the per-k16 float32 sums, the mel bands walked in bin
+  order; group and split order, twiddle indexing, leaf offsets and padded
+  leaf width) against the plain version and ``np.fft.rfft``, and the
+  block's shared-memory plans;
 - a numpy transcription of the row kernel's radix select against
   ``np.median`` on adversarial rows.
 
@@ -26,7 +29,7 @@ from audio_analysis_tpu.ops.windows import get_window_np
 
 from audio_analysis_torch.ops import medians as md
 from audio_analysis_torch.ops import melspec as ms
-from audio_analysis_torch.ops.mel import mel_support_bins
+from audio_analysis_torch.ops.mel import filterbank_np, mel_support_bins
 
 # (sr, n_fft, hop, n_mels, fmin, fmax, samples, htk, power): n_fft 512 at
 # 16 kHz (3 levels), Slaney, the end-scan's geometry on a short signal
@@ -236,67 +239,125 @@ def split_np(frames, win, twc, tws, levels, n, grp):
     return list(zip(vr[:8], vi[:8]))
 
 
-def span_np(x, t0, nf, hop, n_fft):
-    """The block's bf16 PCM span: (TFD - 1) hop + n_fft samples from
-    t0 hop - n_fft/2, zero outside the window and past the last frame."""
-    span = np.zeros((ms.DIF_FRAMES - 1) * hop + n_fft, np.float32)
+def bitrev(v, bits):
+    return int(format(v, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def span_np(x, t0, nf, hop, n_fft, base=0):
+    """An item's span buffer as the span loaders write it: sample e of the
+    span (window element t0 hop - n_fft/2 + e), rounded to bf16, at element
+    delta + e, delta = (base + t0 hop - n_fft/2) mod 4 (base: the window's
+    first element in floats from a 16-byte boundary); zeros outside the
+    window, past the item's last frame and in the alignment. Returns
+    (buffer, delta)."""
+    s0 = t0 * hop - n_fft // 2
+    delta = (base + s0) % 4
+    buf = np.zeros(ms.dif_span_alloc(hop, n_fft), np.float32)
     e = np.arange((nf - 1) * hop + n_fft)
-    s = t0 * hop - n_fft // 2 + e
+    s = s0 + e
     ok = (s >= 0) & (s < len(x))
-    span[e[ok]] = bf16_np(x[s[ok]])
-    return span
+    buf[delta + e[ok]] = bf16_np(x[s[ok]])
+    return buf, delta
 
 
-def dif_kernel_np(x, *, sr, n_fft, hop_length, n_mels, fmin, fmax, power, htk=True):
-    """The dif kernel on one window x [S] float32, block by block: span
-    staging, the split by group over K chunks, bf16 leaves, the leaf
-    products (float64 sums of exact products), bf16 power, the mel rows
-    of each leaf. Returns [n_mels, 1 + S // hop] float32."""
+def mel_band_np(melt, levels, bl, n_mels):
+    """dif_mel_band: each row's first and last bin with a nonzero weight,
+    (2^31 - 1, -1) where there is none. Column b bl + j is bin 2^L j +
+    bitrev_L(b)."""
+    col = np.arange(melt.shape[1])
+    leaf, j = col // bl, col % bl
+    bins = (j << levels) | np.array([bitrev(b, levels) for b in leaf])
+    lo = np.full(n_mels, 2 ** 31 - 1)
+    hi = np.full(n_mels, -1)
+    for m in range(n_mels):
+        nz = bins[melt[m] != 0]
+        if len(nz):
+            lo[m], hi[m] = nz.min(), nz.max()
+    return lo, hi
+
+
+def dif_kernel_np(x, *, sr, n_fft, hop_length, n_mels, fmin, fmax, power, htk=True,
+                  frames=None):
+    """The dif kernel on one window x [S] float32, item by item: the span
+    buffer, then per pass (leaf group, bin tile) the K loop in chunks of 64
+    leaf positions (the split of each chunk into the (leaf, frame) rows of
+    R and I, bf16; the pass's rows of C and S, zeros past m_pad; per k16
+    step xr += C.R, xr += S.I, xi += C.I, xi -= S.R, each a
+    float64 block sum of exact products added to the float32 sum), |X|^power
+    rounded to bf16 into the p tile [leaf, bin, frame], and the mel rows
+    over each row's band, bin by bin in float32. Returns [n_mels, n_out]
+    float32."""
     win, twc, tws, ct, st, melt, levels, nb, bl = (
         t.float().numpy() if isinstance(t, torch.Tensor) else t
         for t in ms._dif_consts(sr, n_mels, fmin, fmax, n_fft, 1750.0, htk, "cpu"))
     m_leaf, m_pad = n_fft >> levels, ct.shape[1]
-    n_out = 1 + len(x) // hop_length
-    tfd = ms.DIF_FRAMES
+    n_out = frames or 1 + len(x) // hop_length
+    fd, kd, rg = ms.DIF_FRAMES, ms.DIF_K_CHUNK, levels - 3
+    tbw = ms.dif_pass_width(bl)
+    n_chunks = -(-m_pad // kd)
+    lo, hi = mel_band_np(melt, levels, bl, n_mels)
     out = np.zeros((n_mels, n_out), np.float32)
-    for t0 in range(0, n_out, tfd):
-        nf = min(tfd, n_out - t0)
-        span = span_np(x, t0, nf, hop_length, n_fft)
-        frames = np.stack([span[f * hop_length: f * hop_length + n_fft] for f in range(tfd)])
-        acc = np.zeros((tfd, melt.shape[0]))
-        for grp in range(1 << (levels - 3)):
-            leaves = [(np.zeros((tfd, m_pad), np.float32), np.zeros((tfd, m_pad), np.float32))
-                      for _ in range(8)]
-            for k0 in range(0, m_pad, ms.DIF_K_CHUNK):
-                n = np.arange(k0, min(k0 + ms.DIF_K_CHUNK, m_leaf))
-                if not len(n):
-                    continue
-                for (lr, li), (ur, ui) in zip(leaves, split_np(frames, win, twc, tws, levels,
-                                                               n, grp)):
-                    lr[:, n], li[:, n] = bf16_np(ur), bf16_np(ui)
-            for w, (r, i) in enumerate(leaves):
-                r, i = r.astype(np.float64), i.astype(np.float64)
-                c, s = ct.T.astype(np.float64), st.T.astype(np.float64)
-                xr, xi = r @ c, -(r @ s)
-                if grp or w:
-                    xr, xi = xr + i @ s, xi + i @ c
-                xr, xi = xr.astype(np.float32), xi.astype(np.float32)
+    for t0 in range(0, n_out, fd):
+        nf = min(fd, n_out - t0)
+        buf, delta = span_np(x, t0, nf, hop_length, n_fft)
+        fr = np.stack([buf[delta + f * hop_length: delta + f * hop_length + n_fft]
+                       for f in range(fd)])
+        mel = np.zeros((n_mels, fd), np.float32)
+        for grp in range(1 << rg):
+            for j0 in range(0, bl, ms.DIF_BIN_TILE):
+                cs = [np.zeros((tbw, n_chunks * kd)) for _ in range(2)]
+                for t, tab in zip(cs, (ct, st)):
+                    t[:, :m_pad] = tab[j0:j0 + tbw]
+                xr = np.zeros((tbw, 8 * fd), np.float32)
+                xi = np.zeros((tbw, 8 * fd), np.float32)
+                for c in range(n_chunks):
+                    n = np.arange(c * kd, (c + 1) * kd)
+                    keep = n < m_leaf
+                    rr, ii = np.zeros((8 * fd, kd)), np.zeros((8 * fd, kd))
+                    for b, (ur, ui) in enumerate(split_np(fr, win, twc, tws, levels, n[keep],
+                                                          grp)):
+                        rr[b * fd:(b + 1) * fd, keep] = bf16_np(ur)
+                        ii[b * fd:(b + 1) * fd, keep] = bf16_np(ui)
+                    for k0 in range(0, kd, 16):
+                        k = slice(k0, k0 + 16)
+                        ck, sk = cs[0][:, c * kd + k0: c * kd + k0 + 16], cs[1][:, c * kd + k0:
+                                                                                c * kd + k0 + 16]
+                        xr = (xr + ck @ rr[:, k].T).astype(np.float32)
+                        xr = (xr + sk @ ii[:, k].T).astype(np.float32)
+                        xi = (xi + ck @ ii[:, k].T).astype(np.float32)
+                        xi = (xi - sk @ rr[:, k].T).astype(np.float32)
                 p = xr * xr + xi * xi
                 p = np.sqrt(p) if power == 1.0 else p ** np.float32(power / 2) if power != 2 else p
-                b = grp * 8 + w
-                acc += bf16_np(p).astype(np.float64) @ melt[:, b * bl:(b + 1) * bl].T
-        out[:, t0:t0 + nf] = acc[:nf, :n_mels].T
+                ptile = bf16_np(p).reshape(tbw, 8, fd).transpose(1, 0, 2)  # [leaf, bin, f]
+                res = bitrev(grp, rg)
+                for m in range(n_mels):
+                    if hi[m] < 0:
+                        continue
+                    b0, b1 = max(lo[m], j0 << levels), min(hi[m], ((j0 + tbw) << levels) - 1)
+                    b0 += (res - b0) % (1 << rg)
+                    bins = np.arange(b0, b1 + 1, 1 << rg)
+                    if not len(bins):
+                        continue
+                    leaf = np.array([bitrev(v, levels) for v in bins % (1 << levels)])
+                    j = (bins >> levels) - j0
+                    prods = melt[m, leaf * bl + j0 + j][:, None] * ptile[leaf % 8, j]
+                    mel[m] = np.add.accumulate(np.concatenate([mel[m][None], prods]),
+                                               dtype=np.float32)[-1]
+        out[:, t0:t0 + nf] = mel[:, :nf]
     return out
 
 
 @pytest.mark.parametrize("case,samples", [
     ("nfft512-p2", 4001), ("endscan", 9001), ("classify", 20000), ("slaney", 2048),
-    ("nfft2056", 6000),
+    ("nfft2056", 6000), ("classify", 64 * 640), ("classify", 126 * 640),
+    ("classify", 128 * 640),
 ])
 def test_kernel_transcription_split_equals_the_plain_tree(rng, case, samples):
     """The kernel's split (groups of 8 leaves, slot order, each level's
     twiddle table, float32 operations without contraction) gives the plain
-    version's leaves bit for bit, frame by frame from the staged spans."""
+    version's leaves bit for bit, frame by frame from the span buffers (the
+    first item and the last, partial one: 65, 127 and 129 frames at
+    classify leave 1, 15 and 1 in it)."""
     kw = _kw(case)
     n_fft, hop = kw["n_fft"], kw["hop_length"]
     x = rng.randn(samples).astype(np.float32)
@@ -306,10 +367,10 @@ def test_kernel_transcription_split_equals_the_plain_tree(rng, case, samples):
     win, twc, tws = win.numpy(), twc.numpy(), tws.numpy()
     m_leaf = n_fft >> levels
     n_out = 1 + samples // hop
-    for t0 in (0, (n_out - 1) // 16 * 16):  # the first block and the last, ragged one
+    for t0 in (0, (n_out - 1) // 16 * 16):  # the first item and the last, ragged one
         nf = min(16, n_out - t0)
-        span = span_np(x, t0, nf, hop, n_fft)
-        frames = np.stack([span[f * hop: f * hop + n_fft] for f in range(16)])
+        span, delta = span_np(x, t0, nf, hop, n_fft, base=samples)
+        frames = np.stack([span[delta + f * hop: delta + f * hop + n_fft] for f in range(16)])
         tree = ms.dif_tree(torch.from_numpy(frames) * torch.from_numpy(win),
                            torch.from_numpy(twc), torch.from_numpy(tws), levels)
         n = np.arange(m_leaf)
@@ -354,7 +415,8 @@ def test_kernel_split_leaves_hold_the_rfft_bins(rng, n_fft, levels):
 
 @pytest.mark.parametrize("case,samples", [
     ("nfft512-p2", 4001), ("nfft512-p1", 3300), ("endscan", 9001), ("classify", 20000),
-    ("slaney", 2048), ("nfft2056", 9000),
+    ("slaney", 2048), ("nfft2056", 9000), ("classify", 64 * 640), ("classify", 126 * 640),
+    ("classify", 128 * 640),
 ])
 def test_kernel_transcription_matches_plain(rng, case, samples):
     """The whole kernel transcription against the plain version: 1e-2 max
@@ -369,6 +431,108 @@ def test_kernel_transcription_matches_plain(rng, case, samples):
     assert _max_rel(got, ref) <= 1e-2
     silent = 1 + (samples * 2 // 3 + kw["n_fft"] // 2) // kw["hop_length"]
     assert not got[:, silent:].any() and not ref[:, silent:].any()
+
+
+CARD_SMEM = 232448  # an H100 block's opt-in shared memory
+
+
+def _mma_sync_design_smem(hop, n_fft, bl):
+    """Shared memory of the dif kernel's earlier design (16 warps on
+    mma.sync: two stages of the 16 frames' leaf chunks and of the C/S
+    chunks in rows of 72, the p tile, the span): the hops it admitted stay
+    admitted."""
+    tbw = min(bl, 128)
+    span = -(-((16 - 1) * hop + n_fft) // 8) * 8
+    return 2 * (2 * 8 * 2 * 16 * 72 + 4 * tbw * 72 + 16 * (8 * tbw + 8) + span)
+
+
+def _dif_geometries():
+    """(sr, n_fft, n_mels, fmax, hop) of every dif geometry the card tests
+    run (tests/test_torch_kernels.py: BF16_GEOMS and DIF_GEOMS)."""
+    from test_torch_kernels import BF16_GEOMS, DIF_GEOMS
+
+    geoms = [(sr, n_fft, n_mels, min(11000.0, sr / 2), hop)
+             for sr, n_fft, hop, n_mels, _, _ in BF16_GEOMS.values()
+             if ms.bf16_route(n_fft) == "dif"]
+    geoms += [(sr, n_fft, n_mels, fmax, hop)
+              for sr, n_fft, hop, n_mels, fmax, _, _ in DIF_GEOMS.values()]
+    return geoms
+
+
+def test_dif_smem_fits_every_geometry_and_admitted_hop():
+    """At every dif geometry of the card tests (levels 3, 4 and 5), the
+    first plan that fits an H100 block takes the geometry's hop, and takes
+    every hop that the earlier design's budget admitted: its largest, and
+    (the sizes grow with the hop) every smaller one; the plan picked for
+    each is the first of DIF_PLANS that fits, and each size is the sum of
+    its parts."""
+    seen, plans = set(), set()
+    for sr, n_fft, n_mels, fmax, hop in _dif_geometries():
+        *_, melt, levels, nb, bl = ms._dif_consts(sr, n_mels, 50.0, fmax, n_fft, 1750.0, True,
+                                                  "cpu")
+        rows = melt.shape[0]
+        seen.add(levels)
+        top = max(h for h in range(1, 1 + 60000 // 15)
+                  if _mma_sync_design_smem(h, n_fft, bl) <= CARD_SMEM)
+        for h in (1, hop, top // 2, top):
+            plan = ms.dif_plan(h, n_fft, levels, bl, rows, CARD_SMEM)
+            assert plan is not None, (n_fft, bl, h)
+            plans.add(plan)
+            assert ms.dif_smem(h, n_fft, levels, bl, rows, *plan) <= CARD_SMEM
+            before = ms.DIF_PLANS[:ms.DIF_PLANS.index(plan)]
+            assert all(ms.dif_smem(h, n_fft, levels, bl, rows, *p) > CARD_SMEM for p in before)
+        tbw = ms.dif_pass_width(bl)
+        assert bl % tbw == 0 and tbw % 16 == 0 and tbw <= 128
+        size = ms.dif_smem(hop, n_fft, levels, bl, rows, 2, 2)
+        assert size - ms.dif_smem(hop, n_fft, levels, bl, rows, 1, 2) == (
+            2 * tbw * 64 * 2 + 2 * 128 * 64 * 2)
+        assert size - ms.dif_smem(hop, n_fft, levels, bl, rows, 2, 1) == (
+            2 * ms.dif_span_alloc(hop, n_fft))
+        # the band list holds every nonzero weight of the filterbank's rows
+        lo, hi = mel_band_np(melt.float().numpy(), levels, bl, n_mels)
+        assert (hi - lo + 1)[hi >= 0].sum() <= ms.dif_band_cap(levels, bl, rows)
+    assert seen == {3, 4, 5} and plans == set(ms.DIF_PLANS)
+    # the main paths' two shapes: two span buffers, two ring stages at
+    # classify and three at the end-scan
+    assert ms.dif_plan(640, 4096, 3, 128, 160, CARD_SMEM) == (2, 2)
+    assert ms.dif_plan(281, 4800, 4, 80, 128, CARD_SMEM) == (3, 2)
+
+
+@pytest.mark.parametrize("hop,n_fft", [(281, 4800), (640, 4096), (16, 512), (125, 1000),
+                                       (7, 64)])
+def test_span_buffer_runs_are_aligned(rng, hop, n_fft):
+    """Quad q of a span buffer (elements 4q .. 4q + 3) holds window elements
+    whose address is a whole 16-byte run, for any window offset and item;
+    the buffer holds the alignment and every sample of the item's frames."""
+    for base in rng.randint(0, 1 << 20, size=6):
+        for t0 in (0, 16, 48, 160):
+            s0 = t0 * hop - n_fft // 2
+            _, delta = span_np(np.zeros(10), t0, 16, hop, n_fft, base=int(base))
+            assert 0 <= delta < 4 and (int(base) + s0 - delta) % 4 == 0
+            assert delta + 15 * hop + n_fft <= ms.dif_span_alloc(hop, n_fft)
+            assert ms.dif_span_alloc(hop, n_fft) % 8 == 0
+
+
+@pytest.mark.parametrize("case", ["nfft512-p2", "slaney", "endscan", "classify", "nfft2056"])
+def test_mel_bands_hold_every_weight(case):
+    """The band of each mel row (dif_mel_band) holds every nonzero weight
+    of the row's leaf-permuted columns, and the rows' bands together hold
+    the filterbank's support; a bin's leaf is in group g iff the bin is
+    bitrev(g) modulo 2^(L - 3), the rule by which a pass walks the band."""
+    sr, n_fft, _, n_mels, fmin, fmax, _, htk, _ = DIF_CASES[case]
+    _, _, _, _, _, melt, levels, _, bl = ms._dif_consts(sr, n_mels, fmin, fmax, n_fft, 1750.0,
+                                                        htk, "cpu")
+    melt = melt.float().numpy()
+    lo, hi = mel_band_np(melt, levels, bl, n_mels)
+    fb = filterbank_np(sr, n_mels, fmin, fmax, n_fft, 1750.0, htk)
+    for m in range(n_mels):
+        nz = np.nonzero(fb[m])[0]
+        assert (lo[m], hi[m]) == ((nz.min(), nz.max()) if len(nz) else (2 ** 31 - 1, -1))
+    rg = levels - 3
+    for leaf in range(1 << levels):
+        k = bitrev(leaf, levels)  # the leaf's bins are k + 2^L j
+        for g in range(1 << rg):
+            assert ((leaf >> 3) == g) == (k % (1 << rg) == bitrev(g, rg))
 
 
 # ---------------------------------------------------------------------------

@@ -219,10 +219,74 @@ def test_stft_mel_bf16_kernel_matches_plain(cuda_device, rng, geom, power):
     assert _max_rel(slaney, _bf16_plain(wins, htk=False, **kw)) <= 1e-2
 
 
+# (sr, n_fft, hop, n_mels, fmax, samples, frames): the dif kernel's tiling
+# at the classify geometry with frame counts that leave a partial tile of
+# 16 (17, 65, 129); 5 levels (n_fft 8192 over the whole band at 48 kHz:
+# 4096 support bins, 128 a leaf, 256 mels; one span buffer; at hop 1186
+# also one ring stage); 32 bins a leaf (the second consumer warpgroup holds
+# none); n_fft 64 (leaves of 8 points padded to 16: TMA boxes larger than
+# the tables); the end-scan's geometry at hop 2700 (one span buffer); a
+# frame prefix that ends inside a tile
+DIF_GEOMS = {
+    "frames17": (48000, 4096, 640, 160, 11000.0, 16 * 640, None),
+    "frames65": (48000, 4096, 640, 160, 11000.0, 64 * 640 + 100, None),
+    "frames129": (48000, 4096, 640, 160, 11000.0, 128 * 640, None),
+    "levels5": (48000, 8192, 640, 256, 24000.0, 48000, None),
+    "levels5-hop1186": (48000, 8192, 1186, 256, 24000.0, 100000, None),
+    "bl32": (16000, 512, 160, 40, 7000.0, 16000, None),
+    "nfft64": (16000, 64, 16, 8, 7000.0, 4000, None),
+    "hop2700": (48000, 4800, 2700, 120, 11000.0, 300000, None),
+    "prefix": (48000, 4800, 281, 120, 11000.0, 96000, 333),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", list(DIF_GEOMS))
+@pytest.mark.parametrize("power", [1.0, 2.0])
+def test_stft_mel_dif_bf16_tiling(cuda_device, rng, geom, power):
+    """The dif kernel against its plain version where its tiling has edges:
+    max rel 1e-2, the shape, two launches bit for bit, one launch counted
+    on the dif route."""
+    sr, n_fft, hop, n_mels, fmax, s, frames = DIF_GEOMS[geom]
+    wins = torch.from_numpy(rng.randn(2, s).astype(np.float32)).to(cuda_device)
+    kw = dict(sr=sr, n_fft=n_fft, hop_length=hop, n_mels=n_mels, fmin=50.0, fmax=fmax,
+              power=power, frames=frames)
+    assert ms.bf16_route(n_fft) == "dif"
+    before = (ms.stft_mel_bf16.launches, ms.stft_mel_bf16.dif_launches)
+    got = ms.stft_mel_bf16(wins, **kw)
+    assert (ms.stft_mel_bf16.launches, ms.stft_mel_bf16.dif_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = ms.stft_mel_dif_bf16_plain(wins, **kw)
+    assert got.shape == ref.shape == (2, n_mels, frames or 1 + s // hop)
+    assert _max_rel(got, ref) <= 1e-2
+    assert torch.equal(got, ms.stft_mel_bf16(wins, **kw))
+
+
+@pytest.mark.cuda
+def test_dif_smem_matches_the_kernel(cuda_device):
+    """The host's size of a dif block's shared memory is the library's for
+    every plan, and some plan fits the card at every geometry above."""
+    from audio_analysis_torch.ops import cuda as kcuda
+
+    lib = kcuda.library()
+    cap = kcuda.smem_optin(cuda_device)
+    for sr, n_fft, hop, n_mels, fmax, _, _ in DIF_GEOMS.values():
+        *_, melt, levels, _, bl = ms._dif_consts(sr, n_mels, 50.0, fmax, n_fft, 1750.0, True,
+                                                 "cpu")
+        rows = melt.shape[0]
+        for plan in ms.DIF_PLANS:
+            assert lib.aat_stft_mel_dif_bf16_smem(hop, n_fft, levels, bl, rows,
+                                                  *plan) == ms.dif_smem(hop, n_fft, levels, bl,
+                                                                        rows, *plan)
+        assert ms.dif_plan(hop, n_fft, levels, bl, rows, cap) is not None
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("samples,tails", [
     (96001, (96001, 50000, 20001, 0)),  # 342 frames at hop 281: 21 tiles of 16, then 6
     (48281, (48281, 40000, 30000, 1)),  # 172 frames
+    # the first frame checked silent is 80 (a tile's first), 81, 79 and 96
+    (96001, (79 * 281 - 2400, 80 * 281 - 2400, 78 * 281 - 2400, 95 * 281 - 2400)),
 ])
 def test_stft_mel_dif_bf16_silent_frames_and_odd_counts(cuda_device, rng, samples, tails):
     """The end-scan's geometry (n_fft 4800, 120 mels, power 1) on windows
