@@ -74,12 +74,48 @@
 //   that order) and conjugated; the in-place passes again, which restore the
 //   natural order; conjugated and times the chirp: the n-point DFT of z,
 //   split as above.
-// * direct: any other n_fft that fits (n_fft 6301 for stft_mag, for one).
-//   Each thread owns one bin at a time and walks the TF staged frames with
-//   float64 FMAs, its twiddle advanced by a rotation and re-read exactly
-//   from the table every RESYNC samples (drift below 1e-13 relative):
-//   4 * bins * n_fft operations per frame, about 270x the FFT's at n_fft
-//   4096.
+// * cluster: an n_fft whose one buffer does not fit one block (12800 and up
+//   for stft_mag, 12000 and up for stft_mel on the classify grid, the prime
+//   6301, whose Bluestein length 12800 does not fit either): the transform of
+//   N = c m points (n_fft, else a Bluestein length) split over a cluster of
+//   c = 2, 3, 4, 5, 7 or 8 blocks on neighbouring SMs, each holding m points
+//   in its one buffer; a block reads and writes the others' shared memory
+//   (distributed shared memory, cooperative_groups::this_cluster(),
+//   map_shared_rank) between cluster barriers (ops/melspec.py ::
+//   cluster_plan takes the first N and the smallest c whose block fits).
+//   Split N = c m, point j = p + m r (block r stages the contiguous chunk
+//   [r m, (r + 1) m) of the pair z = frame_a + i frame_b) and bin
+//   k = c k1 + k2: X[c k1 + k2] = sum_p W_m^{p k1} W_N^{p k2}
+//   sum_r x[p + m r] W_c^{r k2}. One exchange pass crosses the cluster: the
+//   cluster's threads take the m buffer addresses in turn (consecutive
+//   threads, consecutive addresses: no bank conflicts, local or remote),
+//   each reads the point p at that address in every block, takes the
+//   c-point DFT (the radix-c butterfly), multiplies output k2 by W_N^{p k2}
+//   (one entry of a host float64 table laid out by address, one rounding)
+//   and writes it to the same address of block k2, so every point crosses
+//   the cluster once and the pass runs in place. Each block then
+//   runs fft1's in-place passes over its m points (staged at
+//   fft_positions, so they come out in natural order): block r holds bins
+//   k = c k1 + r. The pair split needs Z[n - k], which lies in block
+//   -r mod c, read remotely after a cluster barrier; block r computes its
+//   own bins' |X|^power (stft_mag writes them straight to the output;
+//   stft_mel keeps a [tf][ceil(bins / c)] tile, and after a cluster barrier
+//   the cluster's threads take the mel outputs in turn, reading each bin
+//   from its block's tile, summed in bin order). Bluestein over a cluster:
+//   the chirp product over a length N at least 2 n_fft - 1; the forward
+//   transform is the same exchange on natural order followed by each
+//   block's passes by decimation in frequency, which leaves bin c k1 + r in
+//   block r at fft_positions(m)[k1]; the host stores the conjugate chirp's
+//   FFT in that order, so the product needs no redistribution; the inverse
+//   is the transpose: each block's in-place passes (natural k1 out), times
+//   W_N^{r k1}, and the exchange by decimation in time, which leaves point
+//   k of the result in block k / m at k mod m. Four cluster barriers a
+//   pair (six with Bluestein) and one a tile; the frames' all-zero flags
+//   are or-ed over the blocks after staging. Each exchange point costs
+//   remote reads and writes of c complex values, and the cluster's blocks
+//   (one an SM, ~150-220 KB each) must be resident together in one GPC:
+//   the launcher checks cudaOccupancyMaxActiveClusters and returns an
+//   error when it is 0.
 //
 // What bounds them: as functions, the larger of their bytes (the PCM read
 // once, the output written once, over 3.35 TB/s) and the operations of a
@@ -98,16 +134,27 @@
 // same latency-bound shape: fft1 does the fft route's passes in place
 // (at 8192, 2x the points of 4096 and one more pass); bluestein does two
 // FFTs of M >= 2 n_fft - 1 points and two pointwise passes a pair, ~4x the
-// fft route's work at the same n_fft. No atomics: every output is
+// fft route's work at the same n_fft. The cluster route adds, to fft1's
+// passes over m = N / c points in each block, the exchange pass through
+// distributed shared memory and the cluster barriers around it: its blocks
+// wait on the slowest of c, and its exchange's remote loads and stores sit
+// on the critical path of each pair (latency, not bandwidth: c m complex
+// doubles cross the SM-to-SM network a pass). No atomics: every output is
 // written once by one thread, so two launches agree bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;      // direct route
-constexpr int FFT_THREADS = 512;  // fft, fft1 and bluestein routes
-constexpr int RESYNC = 64;        // samples between exact twiddle reloads (direct)
+constexpr int FFT_THREADS = 512;  // threads a block, every route
 constexpr int TW_LO = 64;         // low level of the fft route's twiddle table
 constexpr int HELD = 26;          // outputs a thread holds in the in-place generic pass
 enum Route { FFT1 = 1, BLUESTEIN = 2 };  // the one-buffer routes
@@ -787,115 +834,333 @@ stft_mel_one_kernel(const float* __restrict__ x, const float* __restrict__ win, 
 }
 
 // ---------------------------------------------------------------------------
-// direct route
+// cluster route
 // ---------------------------------------------------------------------------
 
-template <int TF>
-__device__ void stage_frames(double* fr, const float* __restrict__ x,
-                             const float* __restrict__ win, long S, int n_fft,
-                             int hop, int first_frame, int nf) {
-  const int half = n_fft / 2;
-  for (int i = threadIdx.x; i < TF * n_fft; i += blockDim.x) {
-    const int f = i / n_fft;
-    const int n = i - f * n_fft;
-    float v = 0.f;
-    if (f < nf) {
-      const long s = (long)(first_frame + f) * hop + n - half;
-      if (s >= 0 && s < S) v = x[s] * win[n];
+// What the cluster route reads besides the signal and the window. The
+// transform has N = c m points (n_fft, or a Bluestein length); block r of
+// the cluster holds m of them in its one buffer.
+struct Cluster {
+  const double* cs;   // cos(2 pi j / N), j < N: the exchange's radix-c constants
+  const double* sn;   // sin(2 pi j / N)
+  const double* csm;  // cos(2 pi j / m), j < m: the block's passes
+  const double* snm;
+  const double* xc;   // [(c - 1) m] the exchange's twiddles by buffer address q:
+  const double* xs;   //   cos/sin(2 pi k p(q) / N) at (k - 1) m + q, p(q) the point at q
+  const int* radix;   // the plan of m
+  int n_pass;
+  int c;              // blocks a cluster: 2, 3, 4, 5, 7 or 8
+  int m;              // points a block
+  const int* perm;    // fft order: where local point i is staged (fft_positions of m)
+  const double* chc;  // bluestein (null otherwise): the chirp, k < n_fft
+  const double* chs;
+  const double* bc;   // bluestein: the conjugate chirp's FFT over N, divided by N; bin
+  const double* bs;   //   c k1 + r at r m + fft_positions(m)[k1]
+};
+
+// The exchange pass across the cluster, radix C, at this thread's buffer
+// addresses q of the m (block rank's slice: q = rank * blockDim + tid,
+// stride C blockDim), the same address in every block: consecutive
+// threads take consecutive addresses, so the loads and stores, local and
+// remote, hit distinct banks (the point p(q) at an address is the
+// digit-reversed one where the block stages at fft_positions, and the
+// host's twiddle table xc/xs is laid out by address to match). Decimation
+// in frequency (DIT false): the C-point DFT over the blocks of (block r's
+// point p), output k2 times W_N^{p k2}, into block k2's point p.
+// Decimation in time (DIT true, the transpose): block r's point p times
+// W_N^{r p}, then the C-point DFT, output k2 into block k2. Every point is
+// read and written by one thread of the cluster, so the pass runs in place
+// between two cluster barriers.
+template <int C, bool DIT>
+__device__ void exchange_c(double* a, const Cluster& d, int rank) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int np = padded(d.m);
+  double* rem[C];
+#pragma unroll
+  for (int r = 0; r < C; ++r) rem[r] = cl.map_shared_rank(a, r);
+  double wc[C], ws[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    wc[q] = __ldg(d.cs + q * d.m);
+    ws[q] = __ldg(d.sn + q * d.m);
+  }
+  for (int q = rank * blockDim.x + threadIdx.x; q < d.m; q += C * blockDim.x) {
+    const int at = pad(q);
+    double vr[C], vi[C];
+#pragma unroll
+    for (int r = 0; r < C; ++r) {
+      vr[r] = rem[r][at];
+      vi[r] = rem[r][np + at];
     }
-    fr[i] = (double)v;
+    if (DIT) {
+#pragma unroll
+      for (int r = 1; r < C; ++r)
+        twiddle(vr[r], vi[r], __ldg(d.xc + (r - 1) * d.m + q), __ldg(d.xs + (r - 1) * d.m + q));
+    }
+    butterfly<C>(vr, vi, wc, ws);
+    if (!DIT) {
+#pragma unroll
+      for (int k = 1; k < C; ++k)
+        twiddle(vr[k], vi[k], __ldg(d.xc + (k - 1) * d.m + q), __ldg(d.xs + (k - 1) * d.m + q));
+    }
+#pragma unroll
+    for (int r = 0; r < C; ++r) {
+      rem[r][at] = vr[r];
+      rem[r][np + at] = vi[r];
+    }
   }
 }
 
-// Real DFT of bin k for TF staged frames, in float64. cs/sn hold
-// cos/sin(2 pi j / n_fft) for j < n_fft.
-template <int TF>
-__device__ void dft_bin(const double* fr, const double* __restrict__ cs,
-                        const double* __restrict__ sn, int n_fft, int k,
-                        double (&re)[TF], double (&im)[TF]) {
-#pragma unroll
-  for (int f = 0; f < TF; ++f) re[f] = im[f] = 0.0;
-  const double rc = cs[k], rs = sn[k];  // one step of the angle
-  const int jump = (int)(((long)k * RESYNC) % n_fft);
-  int idx = 0;  // (k * n0) mod n_fft at the start of each run
-  for (int n0 = 0; n0 < n_fft; n0 += RESYNC) {
-    double c = cs[idx], s = sn[idx];  // cos/sin of 2 pi k n / n_fft
-    const int n1 = min(n0 + RESYNC, n_fft);
-    for (int n = n0; n < n1; ++n) {
-#pragma unroll
-      for (int f = 0; f < TF; ++f) {
-        const double v = fr[f * n_fft + n];
-        re[f] = fma(v, c, re[f]);
-        im[f] = fma(-v, s, im[f]);
+template <bool DIT>
+__device__ void exchange(double* a, const Cluster& d, int rank) {
+  switch (d.c) {
+    case 2: exchange_c<2, DIT>(a, d, rank); break;
+    case 3: exchange_c<3, DIT>(a, d, rank); break;
+    case 4: exchange_c<4, DIT>(a, d, rank); break;
+    case 5: exchange_c<5, DIT>(a, d, rank); break;
+    case 7: exchange_c<7, DIT>(a, d, rank); break;
+    default: exchange_c<8, DIT>(a, d, rank); break;
+  }
+}
+
+// Block rank stages its chunk of frames ta and ta + 1 (the second only
+// when has_b): points j = rank m + i, windowed in float32, as
+// z = frame_a + i frame_b; fft order at perm[i], bluestein times the chirp
+// at i and zero past n. Returns, block-wide, the non-zero flags of its
+// samples (bit 0: frame a, bit 1: frame b).
+template <bool BLUE>
+__device__ int stage_cluster(double* a, const float* __restrict__ x,
+                             const float* __restrict__ win, long S, int n, int hop, int ta,
+                             bool has_b, const Cluster& d, int rank) {
+  const long s0 = (long)ta * hop - n / 2;
+  const int np = padded(d.m);
+  int nz = 0;
+  for (int i = threadIdx.x; i < d.m; i += blockDim.x) {
+    const int j = rank * d.m + i;
+    double zr = 0.0, zi = 0.0;
+    if (j < n) {
+      float va, vb;
+      frame_samples(x, win, S, s0 + j, hop, j, has_b, va, vb);
+      nz |= (va != 0.f ? 1 : 0) | (vb != 0.f ? 2 : 0);
+      zr = (double)va;
+      zi = (double)vb;
+      if (BLUE) twiddle(zr, zi, __ldg(d.chc + j), __ldg(d.chs + j));
+    }
+    const int at = BLUE ? i : __ldg(d.perm + i);
+    a[pad(at)] = zr;
+    a[np + pad(at)] = zi;
+  }
+  const int frame_a = __syncthreads_or(nz & 1) ? 1 : 0;
+  const int frame_b = __syncthreads_or(nz & 2) ? 2 : 0;
+  return frame_a | frame_b;
+}
+
+// Frames ta and ta + 1 staged and transformed across the cluster; returns
+// the cluster's non-zero flags (stage_cluster's bits, or-ed over the
+// blocks). fft order: the exchange by decimation in frequency, then the
+// block's in-place passes (input at fft_positions, natural order out): bin
+// k of the pair's spectrum Z ends in block k mod c at k / c. bluestein: the
+// same exchange on natural order, the block's passes by decimation in
+// frequency (bin c k1 + r in block r at fft_positions(m)[k1]), times the
+// filter stored in that order and conjugated, the block's in-place passes
+// (natural k1 out), the exchange by decimation in time: point k of the
+// conjugate of the chirp product ends in block k / m at k mod m (cluster_z
+// conjugates it and multiplies by the chirp). Ends on a cluster barrier.
+template <bool BLUE>
+__device__ int cluster_transform(double* a, const double* tw, int* flag,
+                                 const float* __restrict__ x, const float* __restrict__ win,
+                                 long S, int n, int hop, int ta, bool has_b, const Cluster& d,
+                                 int rank) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int own = stage_cluster<BLUE>(a, x, win, S, n, hop, ta, has_b, d, rank);
+  if (threadIdx.x == 0) *flag = own;
+  cl.sync();
+  int nz = 0;
+  for (int r = 0; r < d.c; ++r) nz |= *cl.map_shared_rank(flag, r);
+  exchange<false>(a, d, rank);
+  cl.sync();
+  if constexpr (BLUE) {
+    const int np = padded(d.m);
+    fft_inplace_dif(a, tw, d.m, d.radix, d.n_pass, d.csm, d.snm);
+    const double* bc = d.bc + (long)rank * d.m;
+    const double* bs = d.bs + (long)rank * d.m;
+    for (int p = threadIdx.x; p < d.m; p += blockDim.x) {
+      const double xr = a[pad(p)], xi = a[np + pad(p)];
+      const double br = __ldg(bc + p), bi = __ldg(bs + p);
+      a[pad(p)] = fma(xr, br, -xi * bi);
+      a[np + pad(p)] = -fma(xr, bi, xi * br);  // conjugated
+    }
+    __syncthreads();
+    fft_inplace<false>(a, tw, d.m, d.radix, d.n_pass, d.csm, d.snm);
+    cl.sync();
+    exchange<true>(a, d, rank);
+  } else {
+    fft_inplace<true>(a, tw, d.m, d.radix, d.n_pass, d.csm, d.snm);
+  }
+  cl.sync();
+  return nz;
+}
+
+// Bin k < n_fft of the pair's spectrum Z, read from the block that holds it
+// (cluster_transform's layout).
+template <bool BLUE>
+__device__ __forceinline__ void cluster_z(const double* a, const Cluster& d, int k, double& zr,
+                                          double& zi) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int owner = BLUE ? k / d.m : k % d.c;
+  const int i = BLUE ? k - owner * d.m : k / d.c;
+  const double* b = cl.map_shared_rank(const_cast<double*>(a), owner);
+  zr = b[pad(i)];
+  zi = b[padded(d.m) + pad(i)];
+  if (BLUE) {
+    zi = -zi;  // conjugated, times the chirp
+    twiddle(zr, zi, __ldg(d.chc + k), __ldg(d.chs + k));
+  }
+}
+
+// split_pair over the cluster: block rank computes the bins
+// k = rank + c i < bins, reading Z[k] and Z[n - k] from their blocks, and
+// writes |X_a[k]|^power to dst[i * sk] and, when has_b, |X_b[k]|^power to
+// dst[i * sk + sf]; a frame flagged all-zero gets exact zeros.
+template <bool BLUE>
+__device__ void split_cluster(const double* a, const Cluster& d, int n, int bins, float power,
+                              int nz, int rank, float* dst, long sk, long sf, bool has_b) {
+  for (int i = threadIdx.x;; i += blockDim.x) {
+    const int k = rank + i * d.c;
+    if (k >= bins) break;
+    double pr, pi, qr, qi;
+    cluster_z<BLUE>(a, d, k, pr, pi);
+    cluster_z<BLUE>(a, d, k ? n - k : 0, qr, qi);
+    dst[i * sk] = (nz & 1) ? power_of(0.5 * (pr + qr), 0.5 * (pi - qi), power) : 0.f;
+    if (has_b)
+      dst[i * sk + sf] = (nz & 2) ? power_of(0.5 * (pi + qi), 0.5 * (qr - pr), power) : 0.f;
+  }
+}
+
+// mel_epilogue over the cluster: bin k's |X|^power of frame f lies in block
+// k mod c's tile at [f][k / c] (rows of bpc); the cluster's threads take the
+// outputs in turn (block rank's thread t: rank blockDim + t, stride c
+// blockDim), each summed in bin order as mel_epilogue sums it.
+__device__ void mel_cluster(const float* pw, int bpc, const float* __restrict__ fb,
+                            const int* __restrict__ fb_lo, const int* __restrict__ fb_hi,
+                            float* __restrict__ out, int w, int t0, int nf, int n_out, int bins,
+                            int n_mels, int c, int rank) {
+  cg::cluster_group cl = cg::this_cluster();
+  float* tiles = const_cast<float*>(pw);
+  for (int o = rank * blockDim.x + threadIdx.x; o < nf * n_mels; o += c * blockDim.x) {
+    const int m = o / nf;
+    const int f = o - m * nf;
+    const float* row = fb + (long)m * bins;
+    const int lo = fb_lo[m];
+    int owner = lo % c, i = lo / c;
+    double acc = 0.0;
+    for (int k = lo; k < fb_hi[m]; ++k) {
+      acc += (double)row[k] * (double)cl.map_shared_rank(tiles, owner)[f * bpc + i];
+      if (++owner == c) {
+        owner = 0;
+        ++i;
       }
-      const double c2 = fma(c, rc, -s * rs);  // angle += 2 pi k / n_fft
-      s = fma(s, rc, c * rs);
-      c = c2;
     }
-    idx += jump;
-    if (idx >= n_fft) idx -= n_fft;
+    out[((long)w * n_mels + m) * n_out + t0 + f] = (float)acc;
   }
 }
 
-// grid (ceil(n_out / TF), n_windows); out [n_windows, n_mels, n_out]
-template <int TF>
-__global__ void __launch_bounds__(THREADS)
-stft_mel_kernel(const float* __restrict__ x, const float* __restrict__ win,
-                const double* __restrict__ cs, const double* __restrict__ sn,
-                const float* __restrict__ fb, const int* __restrict__ fb_lo,
-                const int* __restrict__ fb_hi, float* __restrict__ out, long S,
-                int n_fft, int hop, int n_out, int bins, int n_mels, float power) {
+// grid (c ceil(n_frames / tf), B), clusters of (c, 1, 1); out
+// [B, bins, n_frames]; tf frames a cluster.
+template <bool BLUE>
+__global__ void __launch_bounds__(FFT_THREADS, 1)
+stft_mag_cluster_kernel(const float* __restrict__ x, const float* __restrict__ win, Cluster d,
+                        float* __restrict__ out, long T, int n, int hop, int n_frames, int bins,
+                        float power, int tf) {
+  cg::cluster_group cl = cg::this_cluster();
   extern __shared__ double smem[];
-  double* fr = smem;                    // [TF, n_fft] windowed frames
-  float* pw = (float*)(fr + TF * n_fft);  // [TF, bins] |X|^power
+  double* a = smem;                             // one complex buffer of m points
+  double* tw = smem + 2 * padded(d.m);          // two-level twiddle table of m
+  int* flag = (int*)(tw + 2 * twiddle_rows(d.m));  // this block's frame flags
+  const int rank = (int)cl.block_rank();
+  const int sig = blockIdx.y;
+  const int t0 = (blockIdx.x / d.c) * tf;
+  const int nf = min(tf, n_frames - t0);
+  const float* xs = x + (long)sig * T;
+  float* o = out + ((long)sig * bins + rank) * n_frames + t0;
+  load_twiddles(tw, d.m, d.csm, d.snm);
+  for (int f = 0; f < nf; f += 2) {
+    const bool has_b = f + 1 < nf;
+    const int nz =
+        cluster_transform<BLUE>(a, tw, flag, xs, win, T, n, hop, t0 + f, has_b, d, rank);
+    split_cluster<BLUE>(a, d, n, bins, power, nz, rank, o + f, (long)d.c * n_frames, 1, has_b);
+    cl.sync();  // every block is done reading this pair before the next is staged
+  }
+}
+
+// grid (c ceil(n_out / tf), n_windows), clusters of (c, 1, 1); out
+// [n_windows, n_mels, n_out]; tf frames a cluster.
+template <bool BLUE>
+__global__ void __launch_bounds__(FFT_THREADS, 1)
+stft_mel_cluster_kernel(const float* __restrict__ x, const float* __restrict__ win, Cluster d,
+                        const float* __restrict__ fb, const int* __restrict__ fb_lo,
+                        const int* __restrict__ fb_hi, float* __restrict__ out, long S, int n,
+                        int hop, int n_out, int bins, int n_mels, float power, int tf) {
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ double smem[];
+  double* a = smem;
+  double* tw = smem + 2 * padded(d.m);
+  int* flag = (int*)(tw + 2 * twiddle_rows(d.m));
+  const int bpc = (bins + d.c - 1) / d.c;
+  float* pw = (float*)(flag + 4);  // [tf, bpc] |X|^power of this block's bins
+  const int rank = (int)cl.block_rank();
   const int w = blockIdx.y;
-  const int t0 = blockIdx.x * TF;
-  const int nf = min(TF, n_out - t0);
-  stage_frames<TF>(fr, x + (long)w * S, win, S, n_fft, hop, t0, nf);
-  __syncthreads();
-  for (int k = threadIdx.x; k < bins; k += blockDim.x) {
-    double re[TF], im[TF];
-    dft_bin<TF>(fr, cs, sn, n_fft, k, re, im);
-#pragma unroll
-    for (int f = 0; f < TF; ++f) pw[f * bins + k] = power_of(re[f], im[f], power);
+  const int t0 = (blockIdx.x / d.c) * tf;
+  const int nf = min(tf, n_out - t0);
+  const float* xs = x + (long)w * S;
+  load_twiddles(tw, d.m, d.csm, d.snm);
+  for (int f = 0; f < nf; f += 2) {
+    const int nz = cluster_transform<BLUE>(a, tw, flag, xs, win, S, n, hop, t0 + f, f + 1 < nf,
+                                           d, rank);
+    split_cluster<BLUE>(a, d, n, bins, power, nz, rank, pw + f * bpc, 1, bpc, true);
+    cl.sync();
   }
-  __syncthreads();
-  mel_epilogue(pw, fb, fb_lo, fb_hi, out, w, t0, nf, n_out, bins, n_mels);
-}
-
-// grid (ceil(n_frames / TF), B); out [B, n_bins, n_frames]
-template <int TF>
-__global__ void __launch_bounds__(THREADS)
-stft_mag_kernel(const float* __restrict__ x, const float* __restrict__ win,
-                const double* __restrict__ cs, const double* __restrict__ sn,
-                float* __restrict__ out, long T, int n_fft, int hop,
-                int n_frames, int n_bins, float power) {
-  extern __shared__ double smem[];
-  double* fr = smem;  // [TF, n_fft] windowed frames
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TF;
-  const int nf = min(TF, n_frames - t0);
-  stage_frames<TF>(fr, x + (long)b * T, win, T, n_fft, hop, t0, nf);
-  __syncthreads();
-  for (int k = threadIdx.x; k < n_bins; k += blockDim.x) {
-    double re[TF], im[TF];
-    dft_bin<TF>(fr, cs, sn, n_fft, k, re, im);
-    float* o = out + ((long)b * n_bins + k) * n_frames + t0;
-#pragma unroll
-    for (int f = 0; f < TF; ++f)
-      if (f < nf) o[f] = power_of(re[f], im[f], power);
-  }
+  mel_cluster(pw, bpc, fb, fb_lo, fb_hi, out, w, t0, nf, n_out, bins, n_mels, d.c, rank);
+  cl.sync();  // no block exits while another reads its tile
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
+// The current device's opt-in shared memory a block, queried once per device.
 int max_smem_optin() {
-  int dev = 0, v = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return v;
+  static std::mutex mu;
+  static std::map<int, int> cache;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  auto found = cache.find(dev);
+  if (found == cache.end()) {
+    int v = 0;
+    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    found = cache.emplace(dev, v).first;
+  }
+  return found->second;
+}
+
+// Opts `kernel` in to `smem` bytes of dynamic shared memory, once per
+// device, kernel and larger size.
+cudaError_t allow_smem(const void* kernel, size_t smem) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> set;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)max_smem_optin()) return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = set[{dev, kernel}];
+  if (smem > have) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    have = smem;
+  }
+  return cudaSuccess;
 }
 
 // Shared memory of one block; ops/melspec.py :: stft_smem sizes it the same.
@@ -912,17 +1177,97 @@ size_t one_smem(int tf, int m, int bins, bool mel) {
          (mel ? sizeof(float) * (size_t)tf * bins : 0);
 }
 
-size_t direct_smem(int tf, int n_fft, int mel_bins) {
-  return sizeof(double) * (size_t)tf * n_fft + sizeof(float) * (size_t)tf * mel_bins;
+// The cluster route's block (ops/melspec.py :: cluster_smem): one complex
+// buffer and the table of its m points, 16 bytes of frame flags, and
+// stft_mel's [tf][ceil(bins / c)] tile.
+size_t cluster_smem(int tf, int c, int m, int bins, bool mel) {
+  return sizeof(double) * (2 * (size_t)padded(m) + 2 * twiddle_rows(m)) + 16 +
+         (mel ? sizeof(float) * (size_t)tf * ((bins + c - 1) / c) : 0);
 }
 
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t st,
                    Args... args) {
-  if (smem > (size_t)max_smem_optin()) return cudaErrorInvalidValue;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = allow_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, st>>>(args...);
   return cudaGetLastError();
+}
+
+// The launch configuration of `kernel` in clusters of (c, 1, 1) blocks of
+// FFT_THREADS threads; `attr` holds the cluster's size.
+template <typename... Params>
+cudaLaunchConfig_t cluster_config(void (*)(Params...), dim3 grid, int c, size_t smem,
+                                  cudaStream_t st, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(FFT_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of (c, 1, 1) blocks of `kernel` with `smem` bytes each
+// the card holds at once (cudaOccupancyMaxActiveClusters), once per device,
+// kernel, c and size; after opting the kernel in to `smem`.
+template <typename... Params>
+cudaError_t active_clusters(void (*kernel)(Params...), int c, size_t smem, int& clusters) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int, size_t>, int> known;
+  cudaError_t err = allow_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(dev, (const void*)kernel, c, smem);
+  auto found = known.find(key);
+  if (found == known.end()) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(kernel, dim3(c), c, smem, 0, &attr);
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    found = known.emplace(key, n).first;
+  }
+  clusters = found->second;
+  return cudaSuccess;
+}
+
+// Launches `kernel` in clusters of (c, 1, 1) blocks; cudaErrorInvalidValue
+// when the smem can not be opted in to, cudaErrorNotSupported when the
+// card can hold no such cluster.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int c, size_t smem,
+                           cudaStream_t st, Args... args) {
+  int clusters = 0;
+  cudaError_t err = active_clusters(kernel, c, smem, clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters <= 0) return cudaErrorNotSupported;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(kernel, grid, c, smem, st, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The cluster route's plan and tile checked: c one of 2, 3, 4, 5, 7, 8, m
+// within the generic pass's held outputs, N = c m n_fft (fft order) or at
+// least 2 n_fft - 1 (bluestein), tf 8 (stft_mag) or 8, 4, 2 (stft_mel).
+bool cluster_ok(const Cluster& d, int n_fft, int tf, bool mel) {
+  const bool c_ok = d.c == 2 || d.c == 3 || d.c == 4 || d.c == 5 || d.c == 7 || d.c == 8;
+  const long pts = (long)d.c * d.m;
+  const bool n_ok = d.chc ? pts >= 2L * n_fft - 1 && d.bc && d.bs && d.chs
+                          : pts == n_fft && d.perm != nullptr;
+  const bool tables_ok = d.xc && d.xs && d.csm && d.snm && d.cs && d.sn && d.radix;
+  const bool tf_ok = mel ? (tf == 8 || tf == 4 || tf == 2) : tf == 8;
+  return c_ok && n_ok && tables_ok && tf_ok && d.m > 0 && d.m <= HELD * FFT_THREADS;
 }
 
 // stft_mag on a one-buffer route (8 frames a block: it has no tile)
@@ -1044,42 +1389,79 @@ int aat_stft_mel_bluestein(const float* x, const float* win, const double* cs, c
                             bins, n_mels, power, tf, stream);
 }
 
-// direct route, any n_fft; arguments as the fft route's without the radices;
-// tf frames a block (8, 4, 2 or 1).
-int aat_stft_mag_direct(const float* x, const float* win, const double* cs, const double* sn,
-                        float* out, int B, long T, int n_fft, int hop, int n_frames,
-                        float power, int tf, void* stream) {
+// cluster route: cs/sn [c m] the table of the transform's N = c m points
+// (n_fft, or a Bluestein length); radix [n_pass] the plan of m; perm [m]
+// (fft order: where local point i is staged; null for bluestein); csm/snm
+// [m] the table of m; xc/xs [(c - 1) m] the exchange's twiddles by buffer
+// address; chc/chs [n_fft] and bc/bs [c m] Bluestein's chirp and its filter
+// in the cluster's order (null for the fft order); tf 8.
+int aat_stft_mag_cluster(const float* x, const float* win, const double* cs, const double* sn,
+                         const int* radix, int n_pass, const int* perm, const double* csm,
+                         const double* snm, const double* xc, const double* xs, int c, int m,
+                         const double* chc, const double* chs, const double* bc, const double* bs,
+                         float* out, int B, long T, int n_fft, int hop, int n_frames, float power,
+                         int tf, void* stream) {
   if (B <= 0 || n_frames <= 0) return 0;
-  if (B > 65535) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
+  const Cluster d{cs, sn, csm, snm, xc, xs, radix, n_pass, c, m, perm, chc, chs, bc, bs};
+  const long tiles = (n_frames + tf - 1) / tf;
+  if (B > 65535 || !cluster_ok(d, n_fft, tf, false) || tiles * c > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
   const int bins = n_fft / 2 + 1;
-  const size_t smem = direct_smem(tf, n_fft, 0);
-  const dim3 grid((n_frames + tf - 1) / tf, B);
-  switch (tf) {
-    case 8: return (int)launch(stft_mag_kernel<8>, grid, THREADS, smem, st, x, win, cs, sn, out, T, n_fft, hop, n_frames, bins, power);
-    case 4: return (int)launch(stft_mag_kernel<4>, grid, THREADS, smem, st, x, win, cs, sn, out, T, n_fft, hop, n_frames, bins, power);
-    case 2: return (int)launch(stft_mag_kernel<2>, grid, THREADS, smem, st, x, win, cs, sn, out, T, n_fft, hop, n_frames, bins, power);
-    case 1: return (int)launch(stft_mag_kernel<1>, grid, THREADS, smem, st, x, win, cs, sn, out, T, n_fft, hop, n_frames, bins, power);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const dim3 grid((unsigned)(tiles * c), B);
+  const size_t smem = cluster_smem(tf, c, m, bins, false);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (chc)
+    return (int)launch_cluster(stft_mag_cluster_kernel<true>, grid, c, smem, st, x, win, d, out,
+                               T, n_fft, hop, n_frames, bins, power, tf);
+  return (int)launch_cluster(stft_mag_cluster_kernel<false>, grid, c, smem, st, x, win, d, out, T,
+                             n_fft, hop, n_frames, bins, power, tf);
 }
 
-int aat_stft_mel_direct(const float* x, const float* win, const double* cs, const double* sn,
-                        const float* fb, const int* fb_lo, const int* fb_hi, float* out,
-                        int n_windows, long S, int n_fft, int hop, int n_out, int bins,
-                        int n_mels, float power, int tf, void* stream) {
+// cluster route, stft_mel: the route's tables as aat_stft_mag_cluster's,
+// the mel arguments as aat_stft_mel_fft's; tf 8, 4 or 2.
+int aat_stft_mel_cluster(const float* x, const float* win, const double* cs, const double* sn,
+                         const int* radix, int n_pass, const int* perm, const double* csm,
+                         const double* snm, const double* xc, const double* xs, int c, int m,
+                         const double* chc, const double* chs, const double* bc, const double* bs,
+                         const float* fb, const int* fb_lo, const int* fb_hi, float* out,
+                         int n_windows, long S, int n_fft, int hop, int n_out, int bins,
+                         int n_mels, float power, int tf, void* stream) {
   if (n_windows <= 0 || n_out <= 0) return 0;
-  if (n_windows > 65535 || bins <= 0 || bins > n_fft / 2 + 1) return (int)cudaErrorInvalidValue;
+  const Cluster d{cs, sn, csm, snm, xc, xs, radix, n_pass, c, m, perm, chc, chs, bc, bs};
+  const long tiles = (n_out + tf - 1) / tf;
+  if (n_windows > 65535 || bins <= 0 || bins > n_fft / 2 + 1 || !cluster_ok(d, n_fft, tf, true) ||
+      tiles * c > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(tiles * c), n_windows);
+  const size_t smem = cluster_smem(tf, c, m, bins, true);
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = direct_smem(tf, n_fft, bins);
-  const dim3 grid((n_out + tf - 1) / tf, n_windows);
-  switch (tf) {
-    case 8: return (int)launch(stft_mel_kernel<8>, grid, THREADS, smem, st, x, win, cs, sn, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
-    case 4: return (int)launch(stft_mel_kernel<4>, grid, THREADS, smem, st, x, win, cs, sn, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
-    case 2: return (int)launch(stft_mel_kernel<2>, grid, THREADS, smem, st, x, win, cs, sn, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
-    case 1: return (int)launch(stft_mel_kernel<1>, grid, THREADS, smem, st, x, win, cs, sn, fb, fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (chc)
+    return (int)launch_cluster(stft_mel_cluster_kernel<true>, grid, c, smem, st, x, win, d, fb,
+                               fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power, tf);
+  return (int)launch_cluster(stft_mel_cluster_kernel<false>, grid, c, smem, st, x, win, d, fb,
+                             fb_lo, fb_hi, out, S, n_fft, hop, n_out, bins, n_mels, power, tf);
+}
+
+// The shared memory of one cluster block, in bytes (held against
+// ops/melspec.py :: cluster_smem by a card test).
+int aat_stft_cluster_smem(int tf, int c, int m, int bins, int mel) {
+  return (int)cluster_smem(tf, c, m, bins, mel != 0);
+}
+
+// How many clusters of the route's kernel (stft_mel where mel, bluestein
+// where blue) the card holds at once for that plan; a negative cudaError
+// where the query fails.
+int aat_stft_cluster_occupancy(int tf, int c, int m, int bins, int mel, int blue) {
+  const size_t smem = cluster_smem(tf, c, m, bins, mel != 0);
+  int n = 0;
+  cudaError_t err;
+  if (mel)
+    err = blue ? active_clusters(stft_mel_cluster_kernel<true>, c, smem, n)
+               : active_clusters(stft_mel_cluster_kernel<false>, c, smem, n);
+  else
+    err = blue ? active_clusters(stft_mag_cluster_kernel<true>, c, smem, n)
+               : active_clusters(stft_mag_cluster_kernel<false>, c, smem, n);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // extern "C"

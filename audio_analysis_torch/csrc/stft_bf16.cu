@@ -145,7 +145,15 @@
 //    product of two bf16 values is exact in float32, so fmaf rounds once,
 //    as a separate add would). A dense mel product on the tensor cores
 //    would fetch the [mel_rows x 2^L bl_p] matrix (~0.3 MB, more than C and
-//    S) from L2 for every 16 frames, to multiply mostly zeros;
+//    S) from L2 for every 16 frames, to multiply mostly zeros. Where the
+//    list does not fit beside one ring stage and one span buffer (n_fft
+//    32768 at 7 levels and more) the launcher leaves it out and the mel
+//    passes read the band's weights from melt (L2);
+//  - the split's depth L runs from 3 to 8 (n_fft up to 32768, leaves of
+//    at least 128 points): the first L - 3 levels keep one group's branch
+//    of 2^L samples a frame in registers, which spill to local memory from
+//    L = 5 on (the split warps hold 72 registers); a deep split is right
+//    and slow;
 //  - the item's [n_mels x 16] outputs are summed in registers across leaf
 //    groups and bin tiles and stored from them.
 // Every output element is summed by one thread in one fixed order, with no
@@ -1196,19 +1204,22 @@ int dif_band_cap(int levels, int bl_p, int mel_rows) {
 // Shared memory of one dif block, in bytes (ops/melspec.py :: dif_smem sizes
 // it the same): 1024 for alignment, the ring, the p tile, the span buffers
 // (each (16 - 1) hop + n_fft samples and 3 of alignment, rounded up to 8),
-// the mel bands and list offsets, the band list, and 10 barriers.
+// the mel bands and list offsets, the band list (where `listed`), and 10
+// barriers.
 size_t dif_smem_bytes(int hop, int n_fft, int levels, int bl_p, int mel_rows, int stages,
-                      int spans) {
+                      int spans, int listed) {
   const size_t tbw = bl_p < BTILE ? bl_p : BTILE;
   const size_t span = ((size_t)(FD - 1) * hop + n_fft + 3 + 7) / 8 * 8;
   return 1024 + (size_t)stages * (2 * tbw * KD * 2 + 2 * (size_t)LEAF_TILE) +
          (size_t)GROUP * tbw * FD * 2 + (size_t)spans * span * 2 + (2 * MEL_MAX + 8) * 4 +
-         (size_t)dif_band_cap(levels, bl_p, mel_rows) * 2 +
+         (listed ? (size_t)dif_band_cap(levels, bl_p, mel_rows) * 2 : 0) +
          (2 * DIF_STAGES_MAX + 4) * sizeof(uint64_t);
 }
 
-// (ring stages, span buffers), the first that fits
-constexpr int DIF_PLANS[4][2] = {{3, 2}, {2, 2}, {2, 1}, {1, 1}};
+// (ring stages, span buffers, band list), the first that fits; without the
+// band list (the deepest splits at n_fft 32768) the mel passes read the
+// weights from melt
+constexpr int DIF_PLANS[5][3] = {{3, 2, 1}, {2, 2, 1}, {2, 1, 1}, {1, 1, 1}, {1, 1, 0}};
 
 struct DifDevice {
   int sms = 0, optin = 0;
@@ -1336,7 +1347,7 @@ int aat_stft_mel_bf16_smem(int mel_rows) { return (int)direct_smem(mel_rows); }
 // (the leaf DFT matrices, transposed: row j = bin j of a leaf, zero past
 // m_leaf = n_fft >> levels and past nb); melt [mel_rows, 2^levels bl_p]
 // bf16 (the leaf-permuted mel matrix, transposed, zero rows past n_mels);
-// out [n_windows, n_mels, n_out] float32. levels 3..5; m_pad a multiple of
+// out [n_windows, n_mels, n_out] float32. levels 3..8; m_pad a multiple of
 // 16; bl_p a multiple of 16 up to 128, else of 128; mel_rows a multiple of
 // 8 up to 256. Returns cudaErrorInvalidValue where no plan's shared memory
 // fits the device (dif_smem_bytes) and cudaErrorNotSupported where
@@ -1347,7 +1358,7 @@ int aat_stft_mel_dif_bf16(const void* x, const void* win, const void* twc, const
                           int n_out, int nb, int bl_p, int mel_rows, int n_mels, float power,
                           void* stream) {
   if (n_windows <= 0 || n_out <= 0) return 0;
-  if (levels < 3 || levels > 5 || n_fft % (1 << levels) || m_pad % 16 ||
+  if (levels < 3 || levels > 8 || n_fft % (1 << levels) || m_pad % 16 ||
       m_pad < (n_fft >> levels) || bl_p % 16 || bl_p <= 0 || (bl_p > BTILE && bl_p % BTILE) ||
       nb > bl_p || nb <= 0 || mel_rows % 8 || mel_rows > MEL_MAX || n_mels > mel_rows ||
       hop <= 0)
@@ -1355,13 +1366,14 @@ int aat_stft_mel_dif_bf16(const void* x, const void* win, const void* twc, const
   DifDevice dev;
   cudaError_t err = dif_device(dev);
   if (err != cudaSuccess) return (int)err;
-  int stages = 0, spans = 0;
+  int stages = 0, spans = 0, listed = 0;
   size_t smem = 0;
   for (const auto& plan : DIF_PLANS) {
-    smem = dif_smem_bytes(hop, n_fft, levels, bl_p, mel_rows, plan[0], plan[1]);
+    smem = dif_smem_bytes(hop, n_fft, levels, bl_p, mel_rows, plan[0], plan[1], plan[2]);
     if (smem <= (size_t)dev.optin) {
       stages = plan[0];
       spans = plan[1];
+      listed = plan[2];
       break;
     }
   }
@@ -1390,7 +1402,7 @@ int aat_stft_mel_dif_bf16(const void* x, const void* win, const void* twc, const
   a.stages = stages;
   a.spans = spans;
   a.span_alloc = (int)(((long)(FD - 1) * hop + n_fft + 3 + 7) / 8 * 8);
-  a.band_cap = dif_band_cap(levels, bl_p, mel_rows);
+  a.band_cap = listed ? dif_band_cap(levels, bl_p, mel_rows) : 0;
   a.power = power;
 
   CUtensorMap mc, ms;
@@ -1404,16 +1416,19 @@ int aat_stft_mel_dif_bf16(const void* x, const void* win, const void* twc, const
   switch (levels) {
     case 3: return (int)launch_dif<3>(mc, ms, a, smem, grid, s);
     case 4: return (int)launch_dif<4>(mc, ms, a, smem, grid, s);
-    default: return (int)launch_dif<5>(mc, ms, a, smem, grid, s);
+    case 5: return (int)launch_dif<5>(mc, ms, a, smem, grid, s);
+    case 6: return (int)launch_dif<6>(mc, ms, a, smem, grid, s);
+    case 7: return (int)launch_dif<7>(mc, ms, a, smem, grid, s);
+    default: return (int)launch_dif<8>(mc, ms, a, smem, grid, s);
   }
 }
 
 // Shared memory of one dif block, in bytes, for a plan of `stages` ring
-// stages and `spans` span buffers (ops/melspec.py :: dif_smem sizes it the
-// same).
+// stages, `spans` span buffers and the band list where `listed`
+// (ops/melspec.py :: dif_smem sizes it the same).
 int aat_stft_mel_dif_bf16_smem(int hop, int n_fft, int levels, int bl_p, int mel_rows,
-                               int stages, int spans) {
-  return (int)dif_smem_bytes(hop, n_fft, levels, bl_p, mel_rows, stages, spans);
+                               int stages, int spans, int listed) {
+  return (int)dif_smem_bytes(hop, n_fft, levels, bl_p, mel_rows, stages, spans, listed);
 }
 
 }  // extern "C"

@@ -45,15 +45,18 @@ _SIGNATURES = {
                                _L, _I, _I, _I, _I, _I, _F, _I, _P],
     "aat_stft_mag_bluestein": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I,
                                _I, _F, _I, _P],
-    "aat_stft_mel_direct": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _F,
-                            _I, _P],
-    "aat_stft_mag_direct": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _F, _I, _P],
+    "aat_stft_mag_cluster": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                             _P, _I, _L, _I, _I, _I, _F, _I, _P],
+    "aat_stft_mel_cluster": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _F, _I, _P],
+    "aat_stft_cluster_smem": [_I, _I, _I, _I, _I],
+    "aat_stft_cluster_occupancy": [_I, _I, _I, _I, _I, _I],
     "aat_stft_mel_bf16": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _F, _L,
                           _I, _P],
     "aat_stft_mel_bf16_smem": [_I],
     "aat_stft_mel_dif_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _F, _P],
-    "aat_stft_mel_dif_bf16_smem": [_I, _I, _I, _I, _I, _I, _I],
+    "aat_stft_mel_dif_bf16_smem": [_I, _I, _I, _I, _I, _I, _I, _I],
     "aat_row_medians": [_P, _P, _P, _I, _I, _I, _P],
     "aat_col_medians": [_P, _P, _I, _I, _I, _P],
 }

@@ -6,7 +6,7 @@ and ``stft_mag`` replaces ``_kernel_dif_mag`` (CUDA source:
 uses the plain PyTorch version beside it for a CPU tensor; it never falls
 back to the plain version on the card. Each counts its launches in
 ``.launches`` and each route's in ``.fft_launches``, ``.fft1_launches``,
-``.bluestein_launches`` and ``.direct_launches``.
+``.bluestein_launches`` and ``.cluster_launches``.
 
 The TPU kernels' z layout, DIF factoring, split-bf16 passes and 320-frame
 cap exist for the MXU and VMEM; here the kernel takes plain float32 windows
@@ -19,8 +19,11 @@ twiddle table are built here, ``fft_radices`` and ``_twiddles_np``);
 ``fft_positions`` gives), also the only route of the radix-11, radix-13 and
 generic prime passes (prime factors up to ``FFT_MAX_PRIME``);
 ``bluestein``, for an n_fft with a larger prime factor, the chirp product over a padded length
-``bluestein_size`` in one buffer (``bluestein_np``); else the direct
-float64 DFT, which takes any n_fft; ``ValueError`` when none fits.
+``bluestein_size`` in one buffer (``bluestein_np``); else ``cluster``, the
+FFT of n_fft (or Bluestein's chirp product over a padded length) split over
+a thread-block cluster of c blocks that exchange their points once a
+transform through distributed shared memory (``cluster_plan``); ``ValueError``
+when none fits.
 
 Both the kernels and the plain versions window in float32 and take the DFT
 in float64, rounding to float32 at the end. The detection thresholds
@@ -65,7 +68,7 @@ FFT_THREADS = 512  # threads a block of the FFT routes
 INPLACE_HELD = 26  # outputs a thread holds in the in-place generic pass
 FFT_TILES = (8, 4, 2)  # frames a block of the fft routes, largest that fits first
 ONE_MAG_TILES = (8,)  # the one-buffer stft_mag has no tile: 8 frames a block
-DIRECT_TILES = (8, 4, 2, 1)  # the same for the direct route
+CLUSTER_SIZES = (2, 3, 4, 5, 7, 8)  # blocks a cluster: radices of the exchange pass, at most 8
 SMEM_OPTIN_H100 = 232448  # bytes of shared memory a block may opt in to on an H100
 
 
@@ -105,29 +108,28 @@ def fft_positions(radices):
     return pos
 
 
+def _smooth(m: int) -> bool:
+    """m is a product of ``BLUESTEIN_PRIMES``."""
+    for p in BLUESTEIN_PRIMES:
+        while m % p == 0:
+            m //= p
+    return m == 1
+
+
 def bluestein_size(n_fft: int) -> int:
     """Bluestein's padded length: the smallest product of
     ``BLUESTEIN_PRIMES`` at least 2 n_fft - 1 (no wrap of the chirp
     product)."""
     m = 2 * int(n_fft) - 1
-    while True:
-        r = m
-        for p in BLUESTEIN_PRIMES:
-            while r % p == 0:
-                r //= p
-        if r == 1:
-            return m
+    while not _smooth(m):
         m += 1
+    return m
 
 
-@lru_cache(maxsize=8)
-def bluestein_np(n_fft: int):
-    """(chc, chs [n_fft], bc, bs [M]) float64: the chirp cos/sin(pi k^2 / n)
-    with k^2 taken mod 2n (exact integers), and the FFT of the conjugate
-    chirp laid out circularly over M = ``bluestein_size(n_fft)``, divided
-    by M and stored at ``fft_positions`` (the order the forward pass by
-    decimation in frequency leaves its spectrum in)."""
-    n, m = int(n_fft), bluestein_size(n_fft)
+def _bluestein_filter(n: int, m: int):
+    """The chirp cos/sin(pi k^2 / n), k < n, with k^2 taken mod 2n (exact
+    integers), and the FFT of the conjugate chirp laid out circularly over
+    m >= 2n - 1 points, divided by m, in natural order."""
     k = np.arange(n, dtype=np.int64)
     ang = np.pi * ((k * k) % (2 * n)) / n
     chc, chs = np.cos(ang), np.sin(ang)
@@ -135,8 +137,36 @@ def bluestein_np(n_fft: int):
     b = np.zeros(m, np.complex128)
     b[:n] = conj_chirp
     b[m - n + 1:] = conj_chirp[1:][::-1]
+    return chc, chs, np.fft.fft(b) / m
+
+
+@lru_cache(maxsize=8)
+def bluestein_np(n_fft: int):
+    """(chc, chs [n_fft], bc, bs [M]) float64: the chirp and the FFT of the
+    conjugate chirp over M = ``bluestein_size(n_fft)`` (``_bluestein_filter``),
+    stored at ``fft_positions`` (the order the forward pass by decimation in
+    frequency leaves its spectrum in)."""
+    m = bluestein_size(n_fft)
+    chc, chs, spec_nat = _bluestein_filter(int(n_fft), m)
     spec = np.empty(m, np.complex128)
-    spec[fft_positions(fft_radices(m))] = np.fft.fft(b) / m
+    spec[fft_positions(fft_radices(m))] = spec_nat
+    return chc, chs, spec.real.copy(), spec.imag.copy()
+
+
+@lru_cache(maxsize=8)
+def bluestein_cluster_np(n_fft: int, points: int, c: int):
+    """(chc, chs [n_fft], bc, bs [points]) float64 for Bluestein over a
+    cluster of c blocks of m = points / c: the forward transform (the
+    exchange pass, then each block's passes by decimation in frequency)
+    leaves bin c k1 + r in block r at ``fft_positions`` of the m-point plan
+    at k1, so the filter's bin c k1 + r is stored at r m +
+    fft_positions(m)[k1]."""
+    m = points // c
+    chc, chs, spec_nat = _bluestein_filter(int(n_fft), int(points))
+    pos = fft_positions(fft_radices(m))
+    spec = np.empty(points, np.complex128)
+    for r in range(c):
+        spec[r * m + pos] = spec_nat[r::c]
     return chc, chs, spec.real.copy(), spec.imag.copy()
 
 
@@ -158,25 +188,68 @@ def stft_smem(route: str, n_fft: int, bins: int, tf: int, mel: bool) -> int:
     spare double after every 8), the twiddle table and a float32 tile of
     bins x tf frames (rows of tf + 1 for ``stft_mag``); fft1 and bluestein
     one buffer and the table of n_fft or M points and, for the mel kernel
-    only, a tile of tf x bins; the direct route tf float64 frames, and for
-    the mel kernel a tile of tf x bins."""
+    only, a tile of tf x bins. The cluster route: ``cluster_smem``."""
     if route == "fft":
         padded = n_fft + n_fft // 8
         return 8 * (4 * padded + 2 * twiddle_rows(n_fft)) + 4 * (tf if mel else tf + 1) * bins
     if route in ("fft1", "bluestein"):
         m = fft_points(route, n_fft)
         return 8 * (2 * (m + m // 8) + 2 * twiddle_rows(m)) + (4 * tf * bins if mel else 0)
-    return 8 * tf * n_fft + (4 * tf * bins if mel else 0)
+    raise ValueError(f"no block size for route {route!r}")
+
+
+def cluster_smem(points: int, c: int, bins: int, tf: int, mel: bool) -> int:
+    """Shared memory of one block of the cluster route, in bytes, as
+    ``csrc/stft.cu`` sizes it: one complex float64 buffer of m = points / c
+    points (one spare double after every 8) and the twiddle table of m, 16
+    bytes for the block's frame flags and, for the mel kernel, a float32
+    tile of tf frames x ceil(bins / c) bins (the bins k = r + c i the block
+    computes)."""
+    m = points // c
+    return (8 * (2 * (m + m // 8) + 2 * twiddle_rows(m)) + 16
+            + (4 * tf * -(-bins // c) if mel else 0))
+
+
+def _cluster_lengths(n_fft: int):
+    """The transform lengths a cluster may split, in order: n_fft itself
+    when ``fft_radices`` takes it, then Bluestein's padded lengths, every
+    product of ``BLUESTEIN_PRIMES`` from ``bluestein_size`` up to what the
+    largest cluster of the largest one-buffer blocks holds."""
+    if fft_radices(n_fft) is not None:
+        yield n_fft
+    most = CLUSTER_SIZES[-1] * INPLACE_HELD * FFT_THREADS
+    for m in range(bluestein_size(n_fft), most + 1):
+        if _smooth(m):
+            yield m
+
+
+@lru_cache(maxsize=256)
+def cluster_plan(n_fft: int, bins: int, *, mel: bool, cap: int = SMEM_OPTIN_H100):
+    """(c, points, frames a cluster) of the cluster route, or None: the
+    first transform length of ``_cluster_lengths`` (n_fft, else a
+    Bluestein length: points != n_fft) and the smallest c of
+    ``CLUSTER_SIZES`` dividing it whose block of points / c (at most
+    ``INPLACE_HELD * FFT_THREADS``) fits `cap` bytes, with the most frames
+    of ``FFT_TILES`` (``stft_mel``) or 8 (``stft_mag``)."""
+    tiles = FFT_TILES if mel else ONE_MAG_TILES
+    for points in _cluster_lengths(int(n_fft)):
+        for c in CLUSTER_SIZES:
+            if points % c or points // c > INPLACE_HELD * FFT_THREADS:
+                continue
+            for tf in tiles:
+                if cluster_smem(points, c, bins, tf, mel) <= cap:
+                    return c, points, tf
+    return None
 
 
 def stft_plan(n_fft: int, bins: int, *, mel: bool, cap: int = SMEM_OPTIN_H100):
-    """(route, frames a block) for a DFT of n_fft points whose first ``bins``
-    bins are kept (the mel support, or all 1 + n_fft//2 for ``stft_mag``),
-    the first route whose block fits in ``cap`` bytes of shared memory:
-    ``"fft"`` and then ``"fft1"`` when n_fft's radices are all in
-    ``TWO_BUFFER_RADICES``, ``"fft1"`` when ``fft_radices`` takes n_fft
-    with another, else ``"bluestein"``; then ``"direct"``; ValueError
-    when none fits."""
+    """(route, frames a block, or a cluster) for a DFT of n_fft points whose
+    first ``bins`` bins are kept (the mel support, or all 1 + n_fft//2 for
+    ``stft_mag``), the first route whose block fits in ``cap`` bytes of
+    shared memory: ``"fft"`` and then ``"fft1"`` when n_fft's radices are
+    all in ``TWO_BUFFER_RADICES``, ``"fft1"`` when ``fft_radices`` takes
+    n_fft with another, else ``"bluestein"``; then ``"cluster"``
+    (``cluster_plan``); ValueError when none fits."""
     one_tiles = FFT_TILES if mel else ONE_MAG_TILES
     radices = fft_radices(n_fft)
     if radices is None:
@@ -185,12 +258,15 @@ def stft_plan(n_fft: int, bins: int, *, mel: bool, cap: int = SMEM_OPTIN_H100):
         routes = (("fft", FFT_TILES), ("fft1", one_tiles))
     else:
         routes = (("fft1", one_tiles),)
-    for route, tiles in routes + (("direct", DIRECT_TILES),):
-        if route != "direct" and fft_points(route, n_fft) > INPLACE_HELD * FFT_THREADS:
+    for route, tiles in routes:
+        if fft_points(route, n_fft) > INPLACE_HELD * FFT_THREADS:
             continue
         for tf in tiles:
             if stft_smem(route, n_fft, bins, tf, mel) <= cap:
                 return route, tf
+    plan = cluster_plan(int(n_fft), int(bins), mel=mel, cap=int(cap))
+    if plan is not None:
+        return "cluster", plan[2]
     raise ValueError(f"n_fft {n_fft}: no DFT route fits in {cap} bytes of shared memory")
 
 
@@ -209,15 +285,46 @@ def _device_consts(key, build, device, dtype=None):
     return got
 
 
-def _dft_consts(n_fft, route, device):
+def cluster_twiddles_np(n_fft: int, c: int, points: int):
+    """(xc, xs [(c - 1) m]) float64: the cluster route's exchange twiddles
+    by buffer address q, cos/sin(2 pi k p(q) / points) at (k - 1) m + q for
+    k = 1 .. c - 1, entries of ``_twiddles_np(points)``; p(q), the point a
+    block holds at address q, is the inverse of ``fft_positions`` where the
+    block stages there (points = n_fft), else q (Bluestein)."""
+    m = points // c
+    point = np.arange(m)
+    if points == n_fft:
+        point = np.empty(m, np.int64)
+        point[fft_positions(fft_radices(m))] = np.arange(m)
+    cs, sn = _twiddles_np(points)
+    idx = (np.arange(1, c)[:, None] * point[None, :]).ravel()
+    return cs[idx], sn[idx]
+
+
+def _dft_consts(n_fft, route, device, split=None):
     """The Hann window, the twiddle table and the radices of the route's
-    FFT (empty on the direct route), then fft1's staging positions, or
-    Bluestein's chirp and filter (``bluestein_np``)."""
+    FFT, then fft1's staging positions, or Bluestein's chirp and filter
+    (``bluestein_np``). The cluster route, `split` = (c, points): the table
+    of points and the radices of the m = points / c points of a block, the
+    staging positions (points = n_fft, else none), the table of m, the
+    exchange's twiddles (``cluster_twiddles_np``), then, for Bluestein over
+    the cluster, its chirp and filter (``bluestein_cluster_np``)."""
     def build():
         win = get_window_np("hann", n_fft, periodic=True)
+        if route == "cluster":
+            c, points = split
+            cs, sn = _twiddles_np(points)
+            radices = fft_radices(points // c)
+            head = (win, cs, sn, np.asarray(radices, np.int32))
+            perm = fft_positions(radices) if points == n_fft else np.zeros(0)
+            tables = (perm.astype(np.int32), *_twiddles_np(points // c),
+                      *cluster_twiddles_np(n_fft, c, points))
+            if points == n_fft:
+                return head + tables
+            return head + tables + bluestein_cluster_np(n_fft, points, c)
         m = fft_points(route, n_fft)
         cs, sn = _twiddles_np(m)
-        radices = fft_radices(m) if route != "direct" else ()
+        radices = fft_radices(m)
         head = (win, cs, sn, np.asarray(radices, np.int32))
         if route == "fft1":
             return head + (fft_positions(radices).astype(np.int32),)
@@ -225,22 +332,26 @@ def _dft_consts(n_fft, route, device):
             return head + bluestein_np(n_fft)
         return head
 
-    return _device_consts(("dft", n_fft, route), build, device)
+    return _device_consts(("dft", n_fft, route, split), build, device)
 
 
-def _launch_dft(fn, kind, route, lib, head, consts, tail):
+def _launch_dft(fn, kind, route, lib, head, consts, tail, split=None):
     """Launches ``aat_stft_<kind>_<route>`` with the pointers in `head`,
-    the route's constants and `tail`, and counts the launch on `fn`
-    (``.launches`` and ``.<route>_launches``)."""
+    the route's constants (and the cluster's (c, points) `split`) and
+    `tail`, and counts the launch on `fn` (``.launches`` and
+    ``.<route>_launches``)."""
     _, cs, _, radix, *extra = consts
-    if route == "direct":
-        mid = ()
-    else:
-        mid = (radix.data_ptr(), radix.numel())
+    mid = (radix.data_ptr(), radix.numel())
     if route == "fft1":
         mid += (extra[0].data_ptr(),)
     elif route == "bluestein":
         mid += (cs.numel(), *(t.data_ptr() for t in extra))
+    elif route == "cluster":  # perm, the block's and the exchange's tables, c, m, Bluestein's
+        perm, *tables = extra[:5]
+        blue = [t.data_ptr() for t in extra[5:]] or [None] * 4
+        c = split[0]
+        mid += (perm.data_ptr() if perm.numel() else None, *(t.data_ptr() for t in tables), c,
+                cs.numel() // c, *blue)
     rc = getattr(lib, f"aat_stft_{kind}_{route}")(*head, *mid, *tail)
     cuda.check(rc, fn.__name__)
     fn.launches += 1
@@ -313,21 +424,23 @@ def stft_mel(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
     fb, lo, hi = _mel_consts(int(sr), int(n_mels), float(fmin), float(fmax), n_fft,
                              float(break_freq), bool(htk), dev)
     lib = cuda.library()
-    route, tf = stft_plan(n_fft, fb.shape[1], mel=True, cap=cuda.smem_optin(dev))
-    consts = _dft_consts(n_fft, route, dev)
+    cap = cuda.smem_optin(dev)
+    route, tf = stft_plan(n_fft, fb.shape[1], mel=True, cap=cap)
+    split = cluster_plan(n_fft, fb.shape[1], mel=True, cap=cap)[:2] if route == "cluster" else None
+    consts = _dft_consts(n_fft, route, dev, split)
     win, cs, sn = consts[:3]
     out = torch.empty((n, n_mels, n_out), dtype=torch.float32, device=dev)
     ptrs = (windows.data_ptr(), win.data_ptr(), cs.data_ptr(), sn.data_ptr())
     mel_args = (fb.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), n, s, n_fft,
                 int(hop_length), n_out, fb.shape[1], int(n_mels), float(power), tf,
                 cuda.stream_of(windows))
-    _launch_dft(stft_mel, "mel", route, lib, ptrs, consts, mel_args)
+    _launch_dft(stft_mel, "mel", route, lib, ptrs, consts, mel_args, split)
     return out
 
 
 stft_mel.launches = 0
 stft_mel.fft_launches = stft_mel.fft1_launches = 0
-stft_mel.bluestein_launches = stft_mel.direct_launches = 0
+stft_mel.bluestein_launches = stft_mel.cluster_launches = 0
 
 
 def stft_mag_plain(y, *, n_fft, hop_length, power=1.0):
@@ -349,20 +462,23 @@ def stft_mag(y, *, n_fft, hop_length, power=1.0):
     n_fft = int(n_fft)
     n_frames = stft_frames(t, n_fft, hop_length)
     lib = cuda.library()
-    route, tf = stft_plan(n_fft, n_fft // 2 + 1, mel=False, cap=cuda.smem_optin(y.device))
-    consts = _dft_consts(n_fft, route, y.device)
+    cap = cuda.smem_optin(y.device)
+    route, tf = stft_plan(n_fft, n_fft // 2 + 1, mel=False, cap=cap)
+    split = (cluster_plan(n_fft, n_fft // 2 + 1, mel=False, cap=cap)[:2] if route == "cluster"
+             else None)
+    consts = _dft_consts(n_fft, route, y.device, split)
     win, cs, sn = consts[:3]
     out = torch.empty((b, n_fft // 2 + 1, n_frames), dtype=torch.float32, device=y.device)
     ptrs = (y.data_ptr(), win.data_ptr(), cs.data_ptr(), sn.data_ptr())
     mag_args = (out.data_ptr(), b, t, n_fft, int(hop_length), n_frames, float(power), tf,
                 cuda.stream_of(y))
-    _launch_dft(stft_mag, "mag", route, lib, ptrs, consts, mag_args)
+    _launch_dft(stft_mag, "mag", route, lib, ptrs, consts, mag_args, split)
     return out
 
 
 stft_mag.launches = 0
 stft_mag.fft_launches = stft_mag.fft1_launches = 0
-stft_mag.bluestein_launches = stft_mag.direct_launches = 0
+stft_mag.bluestein_launches = stft_mag.cluster_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -484,13 +600,15 @@ def stft_mel_bf16_plain(windows, *, sr, n_fft, hop_length, n_mels, fmin, fmax,
 # The dif route: _kernel_dif's factored DFT at exact=0
 # ---------------------------------------------------------------------------
 
-DIF_MAX_LEVELS = 5  # the kernel is built for 3, 4 and 5 levels
+DIF_MAX_LEVELS = 8  # the kernel is built for 3 to 8 levels (n_fft up to 32768 needs 8)
 DIF_FRAMES = 16  # frames a work item: N = 8 leaves x 16 frames = 128 columns
 DIF_K_CHUNK = 64  # leaf positions a K chunk: a 128-byte row of bf16
 DIF_GROUP = 8  # leaves a group
 DIF_BIN_TILE = 128  # most bins of a leaf a pass: 64 a consumer warpgroup
 DIF_MEL_MAX = 256  # most mel rows
-DIF_PLANS = ((3, 2), (2, 2), (2, 1), (1, 1))  # (ring stages, span buffers), the first that fits
+# (ring stages, span buffers, band list), the first that fits; the last,
+# without the band list, takes the deepest splits at n_fft 32768
+DIF_PLANS = ((3, 2, 1), (2, 2, 1), (2, 1, 1), (1, 1, 1), (1, 1, 0))
 
 
 def bf16_route(n_fft: int) -> str:
@@ -545,24 +663,25 @@ def dif_band_cap(levels: int, bl: int, mel_rows: int) -> int:
 
 
 def dif_smem(hop: int, n_fft: int, levels: int, bl: int, mel_rows: int, stages: int = 2,
-             spans: int = 2) -> int:
+             spans: int = 2, listed: int = 1) -> int:
     """Shared memory of one dif block, in bytes, as ``csrc/stft_bf16.cu``
     sizes it: 1024 of alignment, `stages` ring stages (the pass's C and S
     chunks [width x 64] and the group's real and imaginary leaves [128 x
     64], bf16), the p tile [8 leaves x width x 16 frames] bf16, `spans`
-    span buffers, the mel bands and list offsets [2 x 260] int32, the band
-    list's weights (bf16) and 10 barriers."""
+    span buffers, the mel bands and list offsets [2 x 260] int32, where
+    `listed` the band list's weights (bf16; else the mel passes read the
+    mel matrix) and 10 barriers."""
     width = dif_pass_width(bl)
     stage = 2 * width * DIF_K_CHUNK * 2 + 2 * DIF_GROUP * DIF_FRAMES * DIF_K_CHUNK * 2
     return (1024 + stages * stage + DIF_GROUP * width * DIF_FRAMES * 2
             + spans * dif_span_alloc(hop, n_fft) * 2 + (2 * DIF_MEL_MAX + 8) * 4
-            + dif_band_cap(levels, bl, mel_rows) * 2 + 10 * 8)
+            + (dif_band_cap(levels, bl, mel_rows) * 2 if listed else 0) + 10 * 8)
 
 
 def dif_plan(hop: int, n_fft: int, levels: int, bl: int, mel_rows: int, cap: int):
-    """(ring stages, span buffers): the first of ``DIF_PLANS`` whose block
-    fits `cap` bytes of shared memory, as the kernel's launcher picks it;
-    None where none fits."""
+    """(ring stages, span buffers, band list): the first of ``DIF_PLANS``
+    whose block fits `cap` bytes of shared memory, as the kernel's launcher
+    picks it; None where none fits."""
     return next((p for p in DIF_PLANS
                  if dif_smem(hop, n_fft, levels, bl, mel_rows, *p) <= cap), None)
 

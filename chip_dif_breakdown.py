@@ -97,8 +97,8 @@ VARIANTS = {
     "TMA only": [e for name, part in PARTS.items() if name != "window/twiddle loads"
                  for e in part],
     "no window/twiddle loads": PARTS["window/twiddle loads"],
-    "two ring stages": [("constexpr int DIF_PLANS[4][2] = {{3, 2}, {2, 2}, {2, 1}, {1, 1}};",
-                         "constexpr int DIF_PLANS[4][2] = {{2, 2}, {2, 2}, {2, 1}, {1, 1}};")],
+    "two ring stages": [("constexpr int DIF_PLANS[5][3] = {{3, 2, 1}, {2, 2, 1}, {2, 1, 1}, {1, 1, 1}, {1, 1, 0}};",
+                         "constexpr int DIF_PLANS[5][3] = {{2, 2, 1}, {2, 2, 1}, {2, 1, 1}, {1, 1, 1}, {1, 1, 0}};")],
 }
 
 

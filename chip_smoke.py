@@ -22,15 +22,21 @@
    launches; stft_mag is timed beside torch.stft in float32 and in float64;
    both are held and timed at the other routes' n_fft, each route
    asserted: 4400 (2^4 5^2 11, fft1 with a radix-11 pass in place), 8192
-   (fft1, too large for two buffers), the prime 4099 (bluestein) and 6301
-   (direct, the smallest n_fft left to it), stft_mel on the classify grid
+   (fft1, too large for two buffers), the prime 4099 (bluestein) and the
+   cluster route (the transform split over a thread-block cluster, with its
+   plan and how many such clusters the card holds): the prime 6301
+   (Bluestein over two blocks), 16384 and 32768, and stft_mel at 12000,
+   stft_mag at 12800; stft_mel on the classify grid
    (with its time over the n_fft 4096 classify's), stft_mag on the whole
    recording beside float64 torch.stft;
    row_medians and col_medians bit for bit against their plain versions and
    np.median;
    stft_mel_bf16 against the plain version of its route (``dif`` for
    n_fft % 8 == 0, ``direct`` for n_fft 500 and the prime 4099 on the
-   classify grid) to max rel 1e-2 and bit for bit across two launches, with
+   classify grid; the dif route's deep splits on 16 classify windows:
+   n_fft 24000 and 32768 at 6 levels, 32768 over the whole band at 256
+   mels at 7 (no band list) and with Slaney's bank at 8) to max rel 1e-2
+   and bit for bit across two launches, with
    its max rel against the float64 plain version for information, and at
    classify [64, 144000] and the end-scan [1, 2.88M] the direct route at
    the same shape (AAT_PALLAS_ALG=matmul) held the same way against its
@@ -38,16 +44,18 @@
 5. the exact level's single-recording path: runs the port's CLI
    (``analyse -o FILE --bird-model DIR --seed 0``) in this process on the
    card, cold and then warm, with every kernel's launch count set to 0 just
-   before and read just after each run (the float64 DFTs' direct route must
-   not run, nor the one-buffer routes), then once more under
+   before and read just after each run (neither the one-buffer routes nor
+   the cluster route may run), then once more under
    torch.profiler (device busy time, idle share, device time by kernel);
    reproduces the committed golden snapshot on the card, and runs the CLI
    once more with ``--device cpu`` (the plain versions) and requires the
    card's result to equal it: signals, length, chirps, cacophony index and
    labels identical, confidences within 1; runs the CLI with a full-width
    TuiNet whose metadata sets n_fft 8192 (cold, warm; stft_mel's fft1
-   route at least once, no direct route) and requires the card's result to
-   equal the CPU's the same way; holds the packed-word detection
+   route at least once) and requires the card's result to equal the CPU's
+   the same way; the same with a full-width TuiNet whose metadata sets
+   n_fft 16384 (stft_mel's cluster route at least once; cold, warm,
+   profiled, CPU); holds the packed-word detection
    morphology against its float max-pool plain version bit for bit on the
    cold run's own [1, 2049, T] spectrogram and medians (device ms of both,
    the host's time to enqueue it, its kernel count);
@@ -61,8 +69,8 @@
 6. the fast level's batch path: runs the batch CLI (``AAT_FAST=1``,
    ``batch -o --bird-model B --bird-model PRE --batch-size 8 --seed 0`` on
    the first eight WAVs) cold and then warm with the counts reset around each
-   run, requires stft_mel_bf16 twice per batch, stft_mel and every direct
-   route never, prints the wall time, audio seconds per second and stage
+   run, requires stft_mel_bf16 twice per batch, stft_mel and the bf16
+   direct route never, prints the wall time, audio seconds per second and stage
    times, and holds stft_mel_bf16, stft_mag, row_medians and col_medians
    against their plain versions on the inputs the cold batch gave them (the
    [8, T] end-scan and the batch's padded classify grid, each also timed
@@ -605,12 +613,30 @@ def fft_flops(n_fft):
 
 
 def dft_route(n_fft, bins, mel):
-    """The route ("fft", "fft1", "bluestein" or "direct") the float64 DFT
+    """The route ("fft", "fft1", "bluestein" or "cluster") the float64 DFT
     wrappers take on this card for n_fft, keeping the first `bins` bins."""
     from audio_analysis_torch.ops import cuda as kcuda
     from audio_analysis_torch.ops import melspec as ms
 
     return ms.stft_plan(n_fft, bins, mel=mel, cap=kcuda.library().aat_smem_optin())[0]
+
+
+def cluster_split(n_fft, bins, mel):
+    """The cluster route's plan on this card: blocks a cluster, the
+    transform's points (a Bluestein length where not n_fft), frames a
+    cluster, a block's shared memory and how many such clusters the card
+    holds at once (cudaOccupancyMaxActiveClusters)."""
+    from audio_analysis_torch.ops import cuda as kcuda
+    from audio_analysis_torch.ops import melspec as ms
+
+    lib = kcuda.library()
+    c, points, tf = ms.cluster_plan(n_fft, bins, mel=mel, cap=lib.aat_smem_optin())
+    active = lib.aat_stft_cluster_occupancy(tf, c, points // c, bins, int(mel),
+                                            int(points != n_fft))
+    if active <= 0:
+        raise AssertionError(f"n_fft {n_fft}: the card holds no cluster of {c} ({active})")
+    return {"c": c, "points": points, "frames": tf, "active_clusters": active,
+            "smem": ms.cluster_smem(points, c, bins, tf, mel)}
 
 
 def dft_entry(name, replaces, fn, plain, libraries, out_bytes, in_bytes, frames, n_fft,
@@ -797,10 +823,12 @@ def check_kernels(pcm):
         n_fft=4096, mel_nnz=nnz_cls, route=dft_route(4096, bins_cls, True), iters=5,
     )
     # the other routes on the classify grid: 4400 = 2^4 5^2 11 (a radix-11
-    # pass, in place), 8192 (one buffer), the prime 4099 (Bluestein) and
-    # 6301 (direct: prime, Bluestein's 12800 points do not fit)
+    # pass, in place), 8192 (one buffer), the prime 4099 (Bluestein), and
+    # the cluster: 6301 (prime, Bluestein's 12800 points over two blocks),
+    # 12000 and 16384 (two blocks), 32768 (four)
     for n_fft, route, iters in ((4400, "fft1", 5), (8192, "fft1", 5), (4099, "bluestein", 5),
-                                (6301, "direct", 2)):
+                                (6301, "cluster", 5), (12000, "cluster", 5),
+                                (16384, "cluster", 5), (32768, "cluster", 3)):
         kw_n = dict(kw_cls, n_fft=n_fft)
         nnz_n = int((filterbank_np(SR, 160, 50.0, 11000.0, n_fft, 1750.0, True) != 0).sum())
         bins_n = mel_support_bins(SR, 160, 50.0, 11000.0, n_fft, 1750.0, True)
@@ -813,6 +841,8 @@ def check_kernels(pcm):
             n_fft=n_fft, mel_nnz=nnz_n, route=dft_route(n_fft, bins_n, True), iters=iters,
         ), route)
         res[name]["vs_classify_4096"] = res[name]["ms"] / res["stft_mel[classify]"]["ms"]
+        if route == "cluster":
+            res[name]["cluster"] = cluster_split(n_fft, bins_n, True)
 
     # detection |STFT| of the recording, zeroed past the end-scan's data end
     mx, mn = _batch_chunk_flatness(y, sr=SR, hop_length=hop)
@@ -829,9 +859,12 @@ def check_kernels(pcm):
     # the other routes on the whole recording, each beside float64
     # torch.stft (library_ms_f64), as on the classify grid
     for n_fft, route, iters in ((4400, "fft1", 5), (8192, "fft1", 5), (4099, "bluestein", 5),
-                                (6301, "direct", 2)):
+                                (6301, "cluster", 5), (12800, "cluster", 5),
+                                (16384, "cluster", 5), (32768, "cluster", 3)):
         name = f"stft_mag[{route}, n_fft {n_fft}]"
         res[name] = require_route(mag_entry(name, fz, n_fft, hop, iters=iters), route)
+        if route == "cluster":
+            res[name]["cluster"] = cluster_split(n_fft, n_fft // 2 + 1, False)
 
     # medians of the a_max-normalised spectrogram over its valid frames
     spec = ms.stft_mag(fz, n_fft=4096, hop_length=hop)
@@ -932,6 +965,7 @@ def check_bf16(pcm):
     returns {name: measurement}."""
     import torch
 
+    from audio_analysis_torch.ops import melspec as ms
     from audio_analysis_torch.ops.scale import normalize_minmax
 
     y = torch.from_numpy(pcm).to(torch.device("cuda"))
@@ -956,9 +990,27 @@ def check_bf16(pcm):
                                              power=2.0)),
     }
     shapes["nfft4099"] = (shapes["classify"][0], dict(cls, n_fft=4099))
+    # the dif split's depths 6 to 8 (n_fft 24000 and 32768 at 160 mels, 6;
+    # 32768 over the whole band at 256 mels, 7, no band list; the same with
+    # Slaney's bank, whose support takes the Nyquist bin, 8), on 16 windows
+    deep = windows(16, 3 * SR)
+    shapes["nfft24000"] = (deep, dict(cls, n_fft=24000))
+    shapes["nfft32768"] = (deep, dict(cls, n_fft=32768))
+    shapes["nfft32768-256mels"] = (deep, dict(cls, n_fft=32768, n_mels=256, fmax=24000.0))
+    shapes["nfft32768-slaney"] = (deep, dict(cls, n_fft=32768, n_mels=256, fmax=24000.0,
+                                             htk=False))
     res = {f"stft_mel_bf16[{tag}]": bf16_entry(f"stft_mel_bf16[{tag}]", x, kw,
                                                compare=tag in ("classify", "end-scan"))
            for tag, (x, kw) in shapes.items()}
+    for tag in ("nfft24000", "nfft32768", "nfft32768-256mels", "nfft32768-slaney"):
+        kw = shapes[tag][1]
+        res[f"stft_mel_bf16[{tag}]"]["levels"] = ms._dif_consts(
+            kw["sr"], kw["n_mels"], kw["fmin"], kw["fmax"], kw["n_fft"], kw["break_freq"],
+            kw.get("htk", True), "cpu")[6]
+    if [res[f"stft_mel_bf16[{t}]"]["levels"] for t in ("nfft24000", "nfft32768",
+                                                       "nfft32768-256mels",
+                                                       "nfft32768-slaney")] != [6, 6, 7, 8]:
+        raise AssertionError("the deep dif shapes took other depths than 6, 6, 7, 8")
     direct = ("stft_mel_bf16[nfft500]", "stft_mel_bf16[nfft4099]")
     if any(m["dft_route"] != ("direct" if k in direct else "dif") for k, m in res.items()):
         raise AssertionError("stft_mel_bf16 took another route than bf16_route's")
@@ -1014,8 +1066,8 @@ def counters():
 
 
 # each DFT wrapper's routes counted as .<route>_launches
-ROUTES = {"stft_mel": ("fft", "fft1", "bluestein", "direct"),
-          "stft_mag": ("fft", "fft1", "bluestein", "direct"), "stft_mel_bf16": ("dif", "direct")}
+ROUTES = {"stft_mel": ("fft", "fft1", "bluestein", "cluster"),
+          "stft_mag": ("fft", "fft1", "bluestein", "cluster"), "stft_mel_bf16": ("dif", "direct")}
 
 
 def reset_counts():
@@ -1034,10 +1086,11 @@ def read_counts():
     return got
 
 
-# the one-buffer routes run on no main path (their n_fft are not the main
-# paths'); the n_fft 8192 CLI phase requires stft_mel.fft1
-OFF_MAIN_ROUTES = {"stft_mel.fft1": 0, "stft_mel.bluestein": 0, "stft_mag.fft1": 0,
-                   "stft_mag.bluestein": 0}
+# the one-buffer and cluster routes run on no main path (their n_fft are
+# not the main paths'); the n_fft 8192 CLI phase requires stft_mel.fft1,
+# the n_fft 16384 one stft_mel.cluster
+OFF_MAIN_ROUTES = {"stft_mel.fft1": 0, "stft_mel.bluestein": 0, "stft_mel.cluster": 0,
+                   "stft_mag.fft1": 0, "stft_mag.bluestein": 0, "stft_mag.cluster": 0}
 
 
 def require_launches(tag, launches, expect):
@@ -1824,7 +1877,7 @@ def check_training(tmp, wav, pcm, effnet_dir):
         if tag == "float32":
             trained = net
     require_launches("TuiNet training step (exact)", launches["train_tuinet_exact"],
-                     {"stft_mel": 1, "stft_mel.direct": 0, "stft_mel_bf16": 0,
+                     {"stft_mel": 1, "stft_mel.cluster": 0, "stft_mel_bf16": 0,
                       "stft_mag": 0, "row_medians": 0, "col_medians": 0})
     require_launches("TuiNet training step (fast)", launches["train_tuinet_fast"],
                      {"stft_mel_bf16": 1, "stft_mel_bf16.direct": 0, "stft_mel": 0,
@@ -1840,7 +1893,7 @@ def check_training(tmp, wav, pcm, effnet_dir):
                         **summary_of(res)}
     require_launches("analyse with the trained TuiNet", launches["analyse_exact_trained_tuinet"],
                      {"stft_mel": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
-                      "stft_mel_bf16": 0, "stft_mel.direct": 0, "stft_mag.direct": 0})
+                      "stft_mel_bf16": 0, "stft_mel.cluster": 0, "stft_mag.cluster": 0})
 
     # EfficientNetB0: a new 4-label head, fine-tuned in float32 at batch 32
     cfg = ModelConfig.load(effnet_dir)
@@ -1861,7 +1914,7 @@ def check_training(tmp, wav, pcm, effnet_dir):
     m["finetune_efficientnet"]["losses"] = [float(l) for l in losses[:3]]
     launches["finetune_efficientnet"] = m["finetune_efficientnet"]["launches"]
     require_launches("EfficientNetB0 fine-tune step", launches["finetune_efficientnet"],
-                     {"stft_mel": 1, "stft_mel.direct": 0, "stft_mel_bf16": 0, "stft_mag": 0,
+                     {"stft_mel": 1, "stft_mel.cluster": 0, "stft_mel_bf16": 0, "stft_mag": 0,
                       "row_medians": 0, "col_medians": 0})
     if not all(math.isfinite(l) for l in m["finetune_efficientnet"]["losses"]):
         raise AssertionError(f"EfficientNetB0 fine-tune losses {losses}")
@@ -1888,7 +1941,7 @@ def check_training(tmp, wav, pcm, effnet_dir):
     require_launches("analyse with the tuned EfficientNetB0",
                      launches["analyse_exact_tuned_efficientnet"],
                      {"stft_mel": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
-                      "stft_mel_bf16": 0, "stft_mel.direct": 0, "stft_mag.direct": 0})
+                      "stft_mel_bf16": 0, "stft_mel.cluster": 0, "stft_mag.cluster": 0})
     log(json.dumps({"training": m}))
     return m, launches
 
@@ -2234,7 +2287,7 @@ def main():
         for knob in ("AAT_FAST", "AAT_PALLAS"):
             os.environ.pop(knob, None)
         exact_path = {"stft_mel": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
-                      "stft_mel.fft": 2, "stft_mag.fft": 1, "stft_mel_bf16": 0, "stft_mel.direct": 0, "stft_mag.direct": 0,
+                      "stft_mel.fft": 2, "stft_mag.fft": 1, "stft_mel_bf16": 0,
                       "stft_mel_bf16.direct": 0, **OFF_MAIN_ROUTES}
         runs, exact_captured = {}, {}
         for tag in ("cold", "warm"):
@@ -2287,6 +2340,29 @@ def main():
                         "max_confidence_diff": worst, "phase_s": time.perf_counter() - t0}))
         if not res8k["species_identify"]:
             raise AssertionError("the n_fft 8192 TuiNet classified no track")
+
+        # a full-width TuiNet whose metadata sets n_fft 16384 (a 341 ms
+        # window): its classify frontend runs stft_mel on the cluster route
+        # (two blocks of 8192 points); warm against the CPU
+        t0 = time.perf_counter()
+        n16_dir = write_tuinet_model(tmp / "tuinet-nfft16384", name="tuinet-nfft16384",
+                                     n_fft=16384)
+        n16_path = dict(exact_path, **{"stft_mel.fft": 1, "stft_mel.cluster": 1})
+        n16_walls = {}
+        for tag in ("cold", "warm"):
+            res16k, n16_walls[tag], nfft16k_launches = run_cli(wav, n16_dir, "cuda")
+            log(json.dumps({"cli_run": f"n_fft 16384 {tag}", "device": "cuda",
+                            "wall_s": n16_walls[tag], "launches": nfft16k_launches,
+                            "labels": count_labels([res16k]), **summary_of(res16k)}))
+            require_launches(f"n_fft 16384 {tag} run", nfft16k_launches, n16_path)
+        cpu16k, wall, _ = run_cli(wav, n16_dir, "cpu")
+        worst = compare_results(res16k, cpu16k, confidence_tol=1)
+        log(json.dumps({"cli_run": "n_fft 16384 cpu", "device": "cpu", "wall_s": wall,
+                        "max_confidence_diff": worst, "phase_s": time.perf_counter() - t0}))
+        if not res16k["species_identify"]:
+            raise AssertionError("the n_fft 16384 TuiNet classified no track")
+        nfft16k_profile = profile_device(lambda: run_cli(wav, n16_dir, "cuda"))
+        log(json.dumps({"profile": "n_fft 16384 warm", "device": "cuda", **nfft16k_profile}))
 
         # recordings at other rates: the resampler, then the exact analyse
         # of the 44.1 kHz WAV (cold, warm, CPU)
@@ -2348,8 +2424,8 @@ def main():
             f"{len(backlog)} x {SECONDS} s WAVs, bird and pre TuiNets (bfloat16)")
         os.environ["AAT_FAST"] = "1"
         fast_path = {"stft_mel_bf16": 2, "stft_mag": 1, "row_medians": 1, "col_medians": 1,
-                     "stft_mag.fft": 1, "stft_mel": 0, "stft_mel.direct": 0, "stft_mag.direct": 0,
-                     "stft_mel_bf16.direct": 0, **OFF_MAIN_ROUTES}
+                     "stft_mag.fft": 1, "stft_mel": 0, "stft_mel_bf16.direct": 0,
+                     **OFF_MAIN_ROUTES}
         batch_runs, captured = {}, {}
         for tag in ("cold", "warm"):
             timer = StageTimer()
@@ -2587,12 +2663,14 @@ def main():
         route = m.get("dft_route")
         key = f"{base}.{route}" if route in ROUTES.get(base, ()) else base
         # each kernel's count on this slice's path where it runs there,
-        # else on the single-recording path; the float64 one-buffer and
-        # direct routes' on the n_fft 8192 CLI, the bf16 direct route's on
-        # the n_fft 4410 fast batch
+        # else on the single-recording path; the float64 one-buffer routes'
+        # on the n_fft 8192 CLI, the cluster route's on the n_fft 16384 CLI,
+        # the bf16 direct route's on the n_fft 4410 fast batch
         if base == "stft_mel_bf16" and route == "direct":
             n = nfft_batch_launches[key]
-        elif route in ("fft1", "bluestein", "direct"):
+        elif route == "cluster":
+            n = nfft16k_launches[key]
+        elif route in ("fft1", "bluestein"):
             n = nfft_launches[key]
         else:
             n = batch_launches[key] if fast_path[base] else launches[key]
@@ -2600,6 +2678,7 @@ def main():
             "name", "route", "source", "replaces")} | {"launches": n} | {
             "launches_by_path": {"analyse_exact": launches[key],
                                  "analyse_exact_nfft8192": nfft_launches[key],
+                                 "analyse_exact_nfft16384": nfft16k_launches[key],
                                  "batch_fast": batch_launches[key],
                                  "backlog_fast": backlog_launches[key],
                                  "analyse_exact_efficientnet": eff_launches[key],
@@ -2611,14 +2690,13 @@ def main():
                                  **{path: n[key] for path, n in side_launches.items()}}} | {
             k: m.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "max_rel", "shape")})
-        if base in ROUTES:  # the DFTs: which route, and the direct route's count
-            direct = f"{base}.direct"
-            out[-1] |= {"dft_route": m["dft_route"], "library_ms_f64": m.get("library_ms_f64"),
-                        "direct_launches": batch_launches[direct] if fast_path[base]
-                        else launches[direct]}
+        if base in ROUTES:  # the DFTs: which route (the bf16 direct route's main-path count)
+            out[-1] |= {"dft_route": m["dft_route"], "library_ms_f64": m.get("library_ms_f64")}
+            if base == "stft_mel_bf16":
+                out[-1]["direct_launches"] = batch_launches["stft_mel_bf16.direct"]
             out[-1] |= {k: m[k] for k in ("direct_ms", "direct_plain_ms", "direct_max_rel",
                                           "stft_mel_ms", "max_rel_f64", "direct_max_rel_f64",
-                                          "vs_classify_4096") if k in m}
+                                          "vs_classify_4096", "cluster", "levels") if k in m}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"efficientnet_b0": {k: effnet_model[k] for k in (
         "f32_card_vs_cpu_max_abs", "bf16_vs_f32_max_abs", "bf16_vs_f32_mean_abs")} | {

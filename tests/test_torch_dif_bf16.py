@@ -188,8 +188,38 @@ def test_dif_refuses_what_the_kernel_does_not_take(rng):
     with pytest.raises(ValueError, match="257 mels"):
         ms.stft_mel_dif_bf16_plain(x, sr=16000, n_fft=512, hop_length=160, n_mels=257,
                                    fmin=50.0, fmax=7000.0)
-    with pytest.raises(ValueError, match="levels"):  # 6 levels: 4096 bins on 2^16 points
+    with pytest.raises(ValueError, match="9 levels"):  # 32769 bins on 2^16 points
         ms._dif_consts(48000, 40, 0.0, 24000.0, 1 << 16, 1750.0, False, "cpu")
+
+
+# (sr, n_fft, hop, n_mels, fmin, fmax, htk, levels): the depths the kernel
+# gained, as tests/test_torch_kernels.py::DEEP_DIF_GEOMS runs them on the
+# card: 6 levels (n_fft 24000 and 32768 on the classify geometry), 7
+# (32768 over the whole band at 256 mels), 8 (the same with Slaney's bank)
+DEEP_CASES = {
+    "levels6-nfft24000": (48000, 24000, 640, 160, 50.0, 11000.0, True, 6),
+    "levels6-nfft32768": (48000, 32768, 640, 160, 50.0, 11000.0, True, 6),
+    "levels7-nfft32768": (48000, 32768, 640, 256, 50.0, 24000.0, True, 7),
+    "levels8-nfft32768": (48000, 32768, 640, 256, 50.0, 24000.0, False, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(DEEP_CASES))
+def test_deep_dif_plain_vs_pallas(rng, case):
+    """The plain version at 6 to 8 levels against ``pallas_mel_spectrogram``
+    (exact=0, interpret mode, which runs ``_kernel_dif`` at the same depth):
+    limit 1e-2 max rel, as at 3 to 5 levels; the depth is the JAX
+    package's."""
+    sr, n_fft, hop, n_mels, fmin, fmax, htk, levels = DEEP_CASES[case]
+    bu = mel_support_bins(sr, n_mels, fmin, fmax, n_fft, 1750.0, htk)
+    assert ms.dif_levels(n_fft, bu) == jm._dif_levels(n_fft, bu) == levels
+    kw = dict(sr=sr, n_fft=n_fft, hop_length=hop, n_mels=n_mels, fmin=fmin, fmax=fmax,
+              htk=htk, power=2.0)
+    wins = rng.randn(2, 2 * hop).astype(np.float32)
+    ref = np.asarray(jm.pallas_mel_spectrogram(jnp.asarray(wins), interpret=True, exact=0, **kw))
+    got = ms.stft_mel_bf16(torch.from_numpy(wins), **kw).numpy()
+    assert got.shape == ref.shape == (2, n_mels, 3)
+    assert _max_rel(got, ref) <= 1e-2
 
 
 # ---------------------------------------------------------------------------
@@ -465,7 +495,9 @@ def test_dif_smem_fits_every_geometry_and_admitted_hop():
     every hop that the earlier design's budget admitted: its largest, and
     (the sizes grow with the hop) every smaller one; the plan picked for
     each is the first of DIF_PLANS that fits, and each size is the sum of
-    its parts."""
+    its parts. The deep splits (levels 6, 7 and 8, at n_fft 24000 and
+    32768, which the earlier design took at no hop) fit at their hop, 7 and
+    8 levels only without the band list."""
     seen, plans = set(), set()
     for sr, n_fft, n_mels, fmax, hop in _dif_geometries():
         *_, melt, levels, nb, bl = ms._dif_consts(sr, n_mels, 50.0, fmax, n_fft, 1750.0, True,
@@ -491,11 +523,25 @@ def test_dif_smem_fits_every_geometry_and_admitted_hop():
         # the band list holds every nonzero weight of the filterbank's rows
         lo, hi = mel_band_np(melt.float().numpy(), levels, bl, n_mels)
         assert (hi - lo + 1)[hi >= 0].sum() <= ms.dif_band_cap(levels, bl, rows)
-    assert seen == {3, 4, 5} and plans == set(ms.DIF_PLANS)
+    from test_torch_kernels import DEEP_DIF_GEOMS
+
+    for sr, n_fft, hop, n_mels, fmax, htk, _ in DEEP_DIF_GEOMS.values():
+        *_, melt, levels, nb, bl = ms._dif_consts(sr, n_mels, 50.0, fmax, n_fft, 1750.0, htk,
+                                                  "cpu")
+        rows = melt.shape[0]
+        seen.add(levels)
+        plan = ms.dif_plan(hop, n_fft, levels, bl, rows, CARD_SMEM)
+        assert plan == ((1, 1, 1) if levels == 6 else (1, 1, 0))
+        plans.add(plan)
+        before = ms.DIF_PLANS[:ms.DIF_PLANS.index(plan)]
+        assert all(ms.dif_smem(hop, n_fft, levels, bl, rows, *p) > CARD_SMEM for p in before)
+        assert ms.dif_smem(hop, n_fft, levels, bl, rows, 1, 1, 1) - ms.dif_smem(
+            hop, n_fft, levels, bl, rows, 1, 1, 0) == 2 * ms.dif_band_cap(levels, bl, rows)
+    assert seen == {3, 4, 5, 6, 7, 8} and plans == set(ms.DIF_PLANS)
     # the main paths' two shapes: two span buffers, two ring stages at
-    # classify and three at the end-scan
-    assert ms.dif_plan(640, 4096, 3, 128, 160, CARD_SMEM) == (2, 2)
-    assert ms.dif_plan(281, 4800, 4, 80, 128, CARD_SMEM) == (3, 2)
+    # classify and three at the end-scan, each with the band list
+    assert ms.dif_plan(640, 4096, 3, 128, 160, CARD_SMEM) == (2, 2, 1)
+    assert ms.dif_plan(281, 4800, 4, 80, 128, CARD_SMEM) == (3, 2, 1)
 
 
 @pytest.mark.parametrize("hop,n_fft", [(281, 4800), (640, 4096), (16, 512), (125, 1000),

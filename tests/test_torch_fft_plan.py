@@ -1,5 +1,6 @@
 """The host-side plan of the port's float64 FFT kernels (``csrc/stft.cu``:
-the fft, fft1 and bluestein routes), checked on the CPU: the radix
+the fft, fft1, bluestein and cluster routes; the cluster's own numpy
+transcription is ``tests/test_torch_cluster_fft.py``), checked on the CPU: the radix
 sequences, the route choice, and a numpy executor of the same plans (same
 pass order, same twiddle-table indexing, the in-place passes' positions,
 Bluestein's chirp product, frames paired as z = a + i b and split) against
@@ -26,7 +27,7 @@ SIZES = (4096, 4800, 4410, 480, 512, 441, 2, 3, 6, 49, 1024, 2048, 4000)
 # buffers (8192, 9600, 11025), radix 13 (832 = 13 * 64); Bluestein (the
 # primes 1021 and 4099)
 WIDE_SIZES = (4400, 8192, 9600, 11025, 832, 1021, 4099)
-SMALLEST_DIRECT_MAG = 6301  # prime; Bluestein's 12800 points do not fit in 232,448 B
+SMALLEST_CLUSTER_MAG = 6301  # prime; Bluestein's 12800 points do not fit one block's 232,448 B
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +285,7 @@ def test_other_prime_factors_have_no_plan(n_fft):
     """Prime factors other than 2, 3, 5 and 7: 11 and 13 take butterflies of
     their own, odd primes up to FFT_MAX_PRIME (61) the generic pass, in
     that order after the small radices; a larger prime factor leaves no
-    plan (the bluestein or direct route)."""
+    plan (the bluestein or cluster route)."""
     largest = max(p for p in range(2, n_fft + 1) if n_fft % p == 0
                   and all(p % d for d in range(2, int(p ** 0.5) + 1)))
     radices = ms.fft_radices(n_fft)
@@ -315,27 +316,44 @@ def test_other_prime_factors_have_no_plan(n_fft):
     (11025, 5513, False, "fft1", 8),  # 3^2 5^2 7^2: the one-buffer |STFT| has no tile
     (11025, mel_support_bins(44100, 120, 50.0, 11000.0, 11025, 1750.0, True), True, "fft1", 2),
     (4099, 2050, False, "bluestein", 8),  # prime: the chirp product over M = 8232
-    (SMALLEST_DIRECT_MAG, 3151, False, "direct", 4),
+    (SMALLEST_CLUSTER_MAG, 3151, False, "cluster", 8),  # Bluestein over two blocks
+    (12800, 6401, False, "cluster", 8),  # one buffer of 12800 points does not fit
+    (16384, mel_support_bins(48000, 160, 50.0, 11000.0, 16384, 1750.0, True), True, "cluster",
+     8),
 ])
 def test_route_choice(n_fft, bins, mel, route, tf):
     assert ms.stft_plan(n_fft, bins, mel=mel) == (route, tf)
-    assert ms.stft_smem(route, n_fft, bins, tf, mel) <= ms.SMEM_OPTIN_H100
+    if route == "cluster":
+        c, points, _ = ms.cluster_plan(n_fft, bins, mel=mel)
+        assert ms.cluster_smem(points, c, bins, tf, mel) <= ms.SMEM_OPTIN_H100
+    else:
+        assert ms.stft_smem(route, n_fft, bins, tf, mel) <= ms.SMEM_OPTIN_H100
 
 
-@pytest.mark.parametrize("n_fft", [32768, 29063])
+@pytest.mark.parametrize("n_fft", [131072, 65537])
 def test_no_route_fits_raises(n_fft):
+    """Above the cluster's capacity (eight blocks of at most ~12,700
+    points): 2^17, and the prime 65537, whose Bluestein length is above
+    2^17."""
     with pytest.raises(ValueError, match="shared memory"):
         ms.stft_plan(n_fft, n_fft // 2 + 1, mel=False)
 
 
 def test_direct_only_route_when_fft_does_not_fit():
     """A smaller card: n_fft 4096 takes one buffer (fft1) when even two
-    frames of the fft route do not fit, and the direct route only when one
-    buffer does not fit either."""
+    frames of the fft route do not fit, the cluster route (two blocks of
+    2048 points) when one buffer does not fit either, more blocks as the
+    card shrinks, and no route below eight blocks of 512."""
     cap = ms.stft_smem("fft", 4096, 2049, 2, False) - 1
     assert ms.stft_plan(4096, 2049, mel=False, cap=cap) == ("fft1", 8)
     cap = ms.stft_smem("fft1", 4096, 2049, 8, False) - 1
-    assert ms.stft_plan(4096, 2049, mel=False, cap=cap) == ("direct", 2)
+    assert ms.stft_plan(4096, 2049, mel=False, cap=cap) == ("cluster", 8)
+    assert ms.cluster_plan(4096, 2049, mel=False, cap=cap) == (2, 4096, 8)
+    cap = ms.cluster_smem(4096, 2, 2049, 8, False) - 1
+    assert ms.cluster_plan(4096, 2049, mel=False, cap=cap) == (4, 4096, 8)
+    cap = ms.cluster_smem(4096, 8, 2049, 8, False) - 1
+    with pytest.raises(ValueError, match="shared memory"):
+        ms.stft_plan(4096, 2049, mel=False, cap=cap)
 
 
 def test_cpu_wrappers_take_the_plain_version():
@@ -343,11 +361,11 @@ def test_cpu_wrappers_take_the_plain_version():
     nothing, whatever the route of n_fft."""
     y = torch.from_numpy(np.random.RandomState(0).randn(1, 6000).astype(np.float32))
     counts = lambda: (ms.stft_mag.launches, ms.stft_mag.fft1_launches,
-                      ms.stft_mag.bluestein_launches, ms.stft_mag.direct_launches)
+                      ms.stft_mag.bluestein_launches, ms.stft_mag.cluster_launches)
     before = counts()
-    # fft route (480), fft1 (1100 = 4 * 5^2 * 11: a radix-11 pass; 8192), bluestein, direct
+    # fft route (480), fft1 (1100 = 4 * 5^2 * 11: a radix-11 pass; 8192), bluestein, cluster
     for n_fft, route in ((480, "fft"), (4400 // 4, "fft1"), (8192, "fft1"), (1021, "bluestein"),
-                         (SMALLEST_DIRECT_MAG, "direct")):
+                         (SMALLEST_CLUSTER_MAG, "cluster")):
         assert mag_route(n_fft) == route
         got = ms.stft_mag(y, n_fft=n_fft, hop_length=120)
         assert torch.equal(got, ms.stft_mag_plain(y, n_fft=n_fft, hop_length=120))
@@ -355,20 +373,22 @@ def test_cpu_wrappers_take_the_plain_version():
 
 
 def test_smallest_direct_n_fft():
-    """Every n_fft below 6301 takes an FFT route for stft_mag on the H100's
-    232,448 bytes; 6301 (prime, Bluestein's M = 12800 does not fit) is the
-    first left to the direct DFT."""
-    routes = {n: mag_route(n) for n in range(2, SMALLEST_DIRECT_MAG + 1)}
-    assert routes[SMALLEST_DIRECT_MAG] == "direct"
-    assert "direct" not in {routes[n] for n in range(2, SMALLEST_DIRECT_MAG)}
-    assert ms.bluestein_size(SMALLEST_DIRECT_MAG) == 12800
+    """Every n_fft below 6301 takes a one-block route for stft_mag on the
+    H100's 232,448 bytes; 6301 (prime, Bluestein's M = 12800 does not fit
+    one block) is the first that takes the cluster (the direct DFT is
+    gone)."""
+    routes = {n: mag_route(n) for n in range(2, SMALLEST_CLUSTER_MAG + 1)}
+    assert routes[SMALLEST_CLUSTER_MAG] == "cluster"
+    assert "cluster" not in {routes[n] for n in range(2, SMALLEST_CLUSTER_MAG)}
+    assert set(routes.values()) == {"fft", "fft1", "bluestein", "cluster"}
+    assert ms.bluestein_size(SMALLEST_CLUSTER_MAG) == 12800
 
 
 def test_wider_radices_take_the_one_buffer_route():
     """The fft route's kernels hold only the passes of 8, 4, 2, 3, 5 and 7:
     every n_fft whose plan has a radix-11, radix-13 or generic prime pass
     takes fft1, for stft_mag and stft_mel alike, however small."""
-    wide = [n for n in range(2, SMALLEST_DIRECT_MAG)
+    wide = [n for n in range(2, SMALLEST_CLUSTER_MAG)
             if ms.fft_radices(n) and not set(ms.fft_radices(n)) <= set(ms.TWO_BUFFER_RADICES)]
     assert 4400 in wide and 1088 in wide and 11 in wide
     for n in wide:

@@ -38,8 +38,11 @@ def _max_rel(got, gt):
 # at n_fft 512, 480, 4096 (classify), 4800 (end-scan), 4410 (the end-scan at
 # 44.1 kHz, radix 7) and the odd 441; fft1 (one buffer) at 4400 (radix 11),
 # 832 (radix 13), 1088 (radix 17, the generic prime pass), 8192 and 11025;
-# bluestein at the prime 4099; the direct route at 6301 (prime; Bluestein's
-# 12800 points do not fit), short
+# bluestein at the prime 4099; the cluster route (the transform split over
+# a thread-block cluster) at 6301 (prime: Bluestein's 12800 points over two
+# blocks), 12000, 16384 (two blocks), 24000 (three), 32768 (four) on the
+# classify grid, and the prime 29063 (Bluestein's 58320 points over five
+# blocks, two frames a cluster), short
 MEL_GEOMS = {
     "nfft512": (16000, 512, 160, 40, 50.0, 7000.0, 1750.0, 4000, "fft"),
     "nfft480": (4800, 480, 120, 24, 50.0, 2000.0, 1750.0, 4800, "fft"),
@@ -53,9 +56,14 @@ MEL_GEOMS = {
     "nfft8192": (48000, 8192, 640, 160, 50.0, 11000.0, 1750.0, 144000, "fft1"),
     "nfft11025": (44100, 11025, 441, 120, 50.0, 11000.0, 1750.0, 88200, "fft1"),
     "bluestein4099": (48000, 4099, 281, 120, 50.0, 11000.0, 1750.0, 48000, "bluestein"),
-    "direct6301": (48000, 6301, 640, 120, 50.0, 11000.0, 1750.0, 20000, "direct"),
+    "cluster6301": (48000, 6301, 640, 120, 50.0, 11000.0, 1750.0, 20000, "cluster"),
+    "cluster12000": (48000, 12000, 640, 160, 50.0, 11000.0, 1750.0, 20000, "cluster"),
+    "cluster16384": (48000, 16384, 640, 160, 50.0, 11000.0, 1750.0, 20000, "cluster"),
+    "cluster24000": (48000, 24000, 640, 160, 50.0, 11000.0, 1750.0, 20000, "cluster"),
+    "cluster32768": (48000, 32768, 640, 160, 50.0, 11000.0, 1750.0, 20000, "cluster"),
+    "cluster29063": (48000, 29063, 640, 160, 50.0, 11000.0, 1750.0, 20000, "cluster"),
 }
-ROUTE_COUNTS = ("fft_launches", "fft1_launches", "bluestein_launches", "direct_launches")
+ROUTE_COUNTS = ("fft_launches", "fft1_launches", "bluestein_launches", "cluster_launches")
 
 
 def _route_counts(fn):
@@ -95,12 +103,16 @@ def test_stft_mel_kernel_matches_plain(cuda_device, rng, geom, power):
 # (n_fft, hop, route): 48000 samples give an odd frame count at hop 281
 # (171); fft1 at 4400 (radix 11), 1088 and 8704 (radix 17, the generic pass
 # held across a barrier), 8192 and 11025; bluestein at the primes 1021 and
-# 4099; direct at 6301
+# 4099; the cluster at 6301 (Bluestein over two blocks), 12800, 16384 and
+# 24000 (two blocks), 32768 (four), the prime 32749 (Bluestein over eight
+# blocks of 8192) and 19601 (Bluestein over five blocks of 7875)
 MAG_GEOMS = [(4096, 281, "fft"), (480, 120, "fft"), (4800, 281, "fft"), (4410, 256, "fft"),
              (512, 128, "fft"), (441, 100, "fft"), (4400, 281, "fft1"), (1088, 160, "fft1"),
              (8192, 281, "fft1"), (8704, 281, "fft1"), (11025, 441, "fft1"),
              (1021, 256, "bluestein"),
-             (4099, 281, "bluestein"), (6301, 640, "direct")]
+             (4099, 281, "bluestein"), (6301, 640, "cluster"), (12800, 281, "cluster"),
+             (16384, 281, "cluster"), (24000, 441, "cluster"), (32768, 281, "cluster"),
+             (32749, 640, "cluster"), (19601, 640, "cluster")]
 
 
 @pytest.mark.cuda
@@ -143,16 +155,61 @@ def test_stft_mag_batch_of_silent_tails(cuda_device, rng):
 
 @pytest.mark.cuda
 def test_no_route_fits_raises(cuda_device):
-    """n_fft 32768 fits neither route's shared memory: ValueError, never the
-    plain version."""
+    """n_fft 131072 fits no route, the cluster's eight blocks included:
+    ValueError, never the plain version (which computes it on the CPU)."""
     x = torch.zeros(1, 40000, device=cuda_device)
     before = (ms.stft_mag.launches, ms.stft_mel.launches)
     with pytest.raises(ValueError, match="shared memory"):
-        ms.stft_mag(x, n_fft=32768, hop_length=4096)
+        ms.stft_mag(x, n_fft=131072, hop_length=4096)
     with pytest.raises(ValueError, match="shared memory"):
-        ms.stft_mel(x, sr=48000, n_fft=32768, hop_length=4096, n_mels=40, fmin=50.0,
+        ms.stft_mel(x, sr=48000, n_fft=131072, hop_length=4096, n_mels=40, fmin=50.0,
                     fmax=11000.0)
     assert (ms.stft_mag.launches, ms.stft_mel.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop", [(16384, 640), (6301, 640), (32768, 281)])
+def test_cluster_mel_silent_frames(cuda_device, rng, n_fft, hop):
+    """The cluster route on windows silent from their own points: the frame
+    flags are or-ed over the cluster's blocks, so frames wholly past each
+    tail are exact zeros; the rest within 1e-6 of the plain version, two
+    launches bit for bit."""
+    s = 30 * hop + n_fft
+    tails = (s, s // 2, 3 * hop, 0)
+    x = (0.1 * rng.randn(len(tails), s)).astype(np.float32)
+    for row, at in zip(x, tails):
+        row[at:] = 0.0
+    x = torch.from_numpy(x).to(cuda_device)
+    kw = dict(sr=48000, n_fft=n_fft, hop_length=hop, n_mels=160, fmin=50.0, fmax=11000.0,
+              power=2.0)
+    before = ms.stft_mel.cluster_launches
+    got = ms.stft_mel(x, **kw)
+    assert ms.stft_mel.cluster_launches == before + 1
+    assert _max_rel(got, ms.stft_mel_plain(x, **kw)) <= 1e-6
+    assert torch.equal(got, ms.stft_mel(x, **kw))
+    for b, at in enumerate(tails):
+        silent = -(-(at + n_fft // 2) // hop)  # first frame wholly past the tail
+        assert not bool(got[b, :, silent:].any())
+
+
+@pytest.mark.cuda
+def test_cluster_smem_matches_the_kernel(cuda_device):
+    """The host's size of a cluster block's shared memory is the library's,
+    fits the card, and the card holds at least one such cluster, for every
+    cluster plan of the geometries above."""
+    from audio_analysis_torch.ops import cuda as kcuda
+
+    lib = kcuda.library()
+    cap = kcuda.smem_optin(cuda_device)
+    plans = [(n_fft, n_fft // 2 + 1, False) for n_fft, _, route in MAG_GEOMS if route == "cluster"]
+    plans += [(g[1], ms.mel_support_bins(g[0], g[3], g[4], g[5], g[1], g[6], True), True)
+              for g in MEL_GEOMS.values() if g[-1] == "cluster"]
+    for n_fft, bins, mel in plans:
+        c, points, tf = ms.cluster_plan(n_fft, bins, mel=mel, cap=cap)
+        smem = ms.cluster_smem(points, c, bins, tf, mel)
+        assert lib.aat_stft_cluster_smem(tf, c, points // c, bins, int(mel)) == smem <= cap
+        assert lib.aat_stft_cluster_occupancy(tf, c, points // c, bins, int(mel),
+                                              int(points != n_fft)) > 0
 
 
 @pytest.mark.cuda
@@ -262,6 +319,50 @@ def test_stft_mel_dif_bf16_tiling(cuda_device, rng, geom, power):
     assert torch.equal(got, ms.stft_mel_bf16(wins, **kw))
 
 
+# (sr, n_fft, hop, n_mels, fmax, htk, samples): the dif split at 6 levels
+# (n_fft 24000 and 32768 on the classify geometry), 7 (32768 over the whole
+# band at 256 mels: no plan with the band list fits, the mel passes read
+# melt) and 8 (the same with Slaney's bank, whose support takes the Nyquist
+# bin)
+DEEP_DIF_GEOMS = {
+    "levels6-nfft24000": (48000, 24000, 640, 160, 11000.0, True, 60000),
+    "levels6-nfft32768": (48000, 32768, 640, 160, 11000.0, True, 60000),
+    "levels7-nfft32768": (48000, 32768, 640, 256, 24000.0, True, 60000),
+    "levels8-nfft32768": (48000, 32768, 640, 256, 24000.0, False, 60000),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", list(DEEP_DIF_GEOMS))
+def test_stft_mel_dif_bf16_deep_splits(cuda_device, rng, geom):
+    """The dif kernel at 6 to 8 levels against its plain version: max rel
+    1e-2, two launches bit for bit, one launch counted on the dif route."""
+    sr, n_fft, hop, n_mels, fmax, htk, s = DEEP_DIF_GEOMS[geom]
+    levels = int(geom[6])
+    wins = torch.from_numpy(rng.randn(2, s).astype(np.float32)).to(cuda_device)
+    kw = dict(sr=sr, n_fft=n_fft, hop_length=hop, n_mels=n_mels, fmin=50.0, fmax=fmax,
+              htk=htk, power=1.0)
+    assert ms._dif_consts(sr, n_mels, 50.0, fmax, n_fft, 1750.0, htk, "cpu")[6] == levels
+    before = ms.stft_mel_bf16.dif_launches
+    got = ms.stft_mel_bf16(wins, **kw)
+    assert ms.stft_mel_bf16.dif_launches == before + 1
+    ref = ms.stft_mel_dif_bf16_plain(wins, **kw)
+    assert got.shape == ref.shape == (2, n_mels, 1 + s // hop)
+    assert _max_rel(got, ref) <= 1e-2
+    assert torch.equal(got, ms.stft_mel_bf16(wins, **kw))
+
+
+@pytest.mark.cuda
+def test_stft_mel_bf16_above_8_levels_raises(cuda_device):
+    """n_fft 65536 over the whole band needs a 9-level split, past the
+    kernel's 8: ValueError on the card (the JAX package's ``_kernel_dif``
+    computes it: an open divergence)."""
+    x = torch.zeros(1, 70000, device=cuda_device)
+    with pytest.raises(ValueError, match="9 levels"):
+        ms.stft_mel_bf16(x, sr=48000, n_fft=65536, hop_length=640, n_mels=256, fmin=50.0,
+                         fmax=24000.0, htk=False)
+
+
 @pytest.mark.cuda
 def test_dif_smem_matches_the_kernel(cuda_device):
     """The host's size of a dif block's shared memory is the library's for
@@ -270,8 +371,11 @@ def test_dif_smem_matches_the_kernel(cuda_device):
 
     lib = kcuda.library()
     cap = kcuda.smem_optin(cuda_device)
-    for sr, n_fft, hop, n_mels, fmax, _, _ in DIF_GEOMS.values():
-        *_, melt, levels, _, bl = ms._dif_consts(sr, n_mels, 50.0, fmax, n_fft, 1750.0, True,
+    geoms = [(sr, n_fft, hop, n_mels, fmax, True) for sr, n_fft, hop, n_mels, fmax, _, _
+             in DIF_GEOMS.values()]
+    geoms += [g[:6] for g in DEEP_DIF_GEOMS.values()]
+    for sr, n_fft, hop, n_mels, fmax, htk in geoms:
+        *_, melt, levels, _, bl = ms._dif_consts(sr, n_mels, 50.0, fmax, n_fft, 1750.0, htk,
                                                  "cpu")
         rows = melt.shape[0]
         for plan in ms.DIF_PLANS:

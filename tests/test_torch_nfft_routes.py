@@ -3,9 +3,12 @@
 against the JAX package on the CPU: ``stft_mel`` and ``stft_mag`` (their
 plain versions on a CPU tensor) against the Pallas kernels in interpret mode, as
 ``tests/test_pallas_exact.py`` runs them, and the port's ``analyse`` CLI
-against the JAX CLI with a TuiNet whose metadata sets n_fft 8192. The
-kernels' own routes are held against these plain versions on a GPU
-(``tests/test_torch_kernels.py``) and in ``tests/test_torch_fft_plan.py``."""
+against the JAX CLI with a TuiNet whose metadata sets n_fft 8192, and
+with one whose metadata sets n_fft 16384 (the cluster route on the card;
+its DFTs against the Pallas kernels: ``tests/test_torch_cluster_pallas.py``).
+The kernels' own routes are held against these plain versions on a GPU
+(``tests/test_torch_kernels.py``) and in ``tests/test_torch_fft_plan.py``
+and ``tests/test_torch_cluster_fft.py``."""
 
 import json
 from pathlib import Path
@@ -98,6 +101,36 @@ def test_cli_json_equals_jax_cli_at_nfft_8192(nfft8192_fixture):
 
     wav, model = nfft8192_fixture
     assert json.loads((Path(model) / "metadata.txt").read_text())["n_fft"] == 8192
+    argv = ["-o", str(wav), "--bird-model", str(model), "--seed", "0"]
+    ref = pipeline._cli_json(jax_run, argv)
+    got = pipeline._cli_json(torch_run, argv + ["--device", "cpu"])
+    assert ref["species_identify"], "the fixture must produce tracks"
+    chip_smoke.compare_results(got, ref)
+    assert pipeline._without_confidences(got) == pipeline._without_confidences(ref)
+
+
+@pytest.fixture(scope="module")
+def nfft16384_fixture(tmp_path_factory):
+    """The same recording and a narrow TuiNet whose metadata sets n_fft
+    16384 (the card's cluster route for the classify frontend)."""
+    from audio_analysis_torch.io.audio import write_wav
+
+    d = tmp_path_factory.mktemp("cli16384")
+    wav = d / "rec.wav"
+    write_wav(wav, chip_smoke.make_recording(seconds=16, silent_from=13.0, seed=5), 48000)
+    model = chip_smoke.write_tuinet_model(d / "tuinet", seed=4, channels=(8, 16), stem=8,
+                                          dense=16, n_mels=40, n_fft=16384)
+    return wav, model
+
+
+def test_cli_json_equals_jax_cli_at_nfft_16384(nfft16384_fixture):
+    from audio_analysis_torch.cli.analyse import run as torch_run
+    from audio_analysis_tpu.cli.analyse import run as jax_run
+
+    wav, model = nfft16384_fixture
+    assert json.loads((Path(model) / "metadata.txt").read_text())["n_fft"] == 16384
+    bins = ms.mel_support_bins(48000, 40, 50.0, 11000.0, 16384, 1750.0, True)
+    assert ms.stft_plan(16384, bins, mel=True)[0] == "cluster"
     argv = ["-o", str(wav), "--bird-model", str(model), "--seed", "0"]
     ref = pipeline._cli_json(jax_run, argv)
     got = pipeline._cli_json(torch_run, argv + ["--device", "cpu"])
