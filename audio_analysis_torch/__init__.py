@@ -11,5 +11,6 @@ This package imports neither jax nor audio_analysis_tpu.
 """
 
 from audio_analysis_torch import device  # noqa: F401  (sets the TF32 flags)
+from audio_analysis_torch.version import __version__
 
-__version__ = "0.1.0"
+__all__ = ["__version__"]

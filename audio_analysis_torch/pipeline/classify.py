@@ -39,6 +39,7 @@ from audio_analysis_torch.detect.signal_noise import detect
 from audio_analysis_torch.device import resolve_device
 from audio_analysis_torch.io.audio import load_recording
 from audio_analysis_torch.io.modelconfig import ModelConfig
+from audio_analysis_torch.io.pcmcodec import upload_pcm, wire_codec_enabled
 from audio_analysis_torch.models.registry import load_classifier
 from audio_analysis_torch.ops.filters import butter_bandpass_sos, sosfilt_array
 from audio_analysis_torch.pipeline.embeddings import chirp_embeddings, load_embedder
@@ -233,8 +234,12 @@ def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.r
     frames_np = np.asarray(frames)
     if frames_np.dtype != np.int16:
         frames_np = frames_np.astype(np.float32)
-    # int16 PCM uploads at half the bytes and converts (/32768) on device
-    frames_dev = torch.from_numpy(np.ascontiguousarray(frames_np)).to(dev)
+    # int16 PCM uploads at half the bytes and converts (/32768) on device;
+    # with the wire codec on it goes through the lossless codec (exact)
+    if frames_np.dtype == np.int16 and wire_codec_enabled():
+        frames_dev = upload_pcm(frames_np, dev)[0, : len(frames_np)]
+    else:
+        frames_dev = torch.from_numpy(np.ascontiguousarray(frames_np)).to(dev)
     with timer.stage("detect"):
         length, signals = detect(frames_dev, sr, level=level)
 

@@ -5,8 +5,9 @@ The reference embeds 5 s / 32 kHz windows of each track with Google's
 bird-vocalization-classifier and classifies the embedding vectors with the
 group's own models (reference src/identify_tracks.py:330-384, 498-499).
 The embedder is named by the group's ``"embedding_model"`` metadata: a
-``.keras`` archive (or a dir holding one), a SavedModel dir with its
-converted copy (``io/converted.py``), or a native checkpoint dir
+``.keras`` archive (or a dir holding one), a SavedModel dir (converted and
+cached by ``io/convert.py``, or run through TF on the host when it is not a
+Keras model), or a native checkpoint dir
 (``weights.npz``, e.g. a ``dense`` stack with ``net_pool``). Without one
 the JAX package downloads the embedder from TF-Hub; the port does not (it
 needs a network and tensorflow) and raises.
@@ -22,7 +23,12 @@ from pathlib import Path
 
 import torch
 
-from audio_analysis_torch.io.converted import ARCHIVE, converted_model_dir
+from audio_analysis_torch.io.convert import (
+    ARCHIVE,
+    ConversionError,
+    HostSavedModel,
+    auto_convert_saved_model,
+)
 from audio_analysis_torch.io.modelconfig import ModelConfig
 from audio_analysis_torch.models.keras_graph import KerasModel
 from audio_analysis_torch.models.registry import load_classifier
@@ -97,7 +103,11 @@ def load_embedder(path, device):
     if p.is_file() and p.suffix == ".keras" or (p.is_dir() and list(p.glob("*.keras"))):
         return _keras_embedder(p if p.is_file() else sorted(p.glob("*.keras"))[0], device)
     if (p / "saved_model.pb").exists():
-        return _keras_embedder(converted_model_dir(p) / ARCHIVE, device)
+        try:
+            converted = auto_convert_saved_model(p)
+        except ConversionError:
+            return HostSavedModel(p)
+        return _keras_embedder(converted / ARCHIVE, device)
     if (p / "weights.npz").exists():
         try:
             cfg = ModelConfig.load(p)

@@ -12,8 +12,9 @@ rfft), each member runs one batched forward over all samples.
 Ensemble members are dirs under the model dir that hold ``saved_model.pb``
 (``model_paths``). A member runs from its ``weights.npz`` (TuiNet, sigmoid
 output unless its metadata says otherwise), a ``.keras`` archive beside it,
-or its converted copy (``io/converted.py``): the port does not run
-TensorFlow, so an unconverted SavedModel raises.
+or the SavedModel itself, converted and cached by ``io/convert.py`` (a
+current cache loads without tensorflow); a SavedModel that is not a Keras
+model runs through TF on the host (``HostSavedModel``).
 """
 
 import os
@@ -24,7 +25,11 @@ import torch
 
 from audio_analysis_torch.device import resolve_device
 from audio_analysis_torch.io.audio import load_audio_mono
-from audio_analysis_torch.io.converted import converted_model_dir
+from audio_analysis_torch.io.convert import (
+    ConversionError,
+    HostSavedModel,
+    auto_convert_saved_model,
+)
 from audio_analysis_torch.io.modelconfig import ModelConfig
 from audio_analysis_torch.models.registry import load_classifier
 from audio_analysis_torch.ops.stft import stft_magnitude
@@ -109,8 +114,9 @@ def model_paths(basepath):
 
 def _load_morepork_model(path, device):
     """One ensemble member on `device`: a native checkpoint dir
-    (weights.npz) through the registry, a .keras archive, or the converted
-    copy of a SavedModel (``io/converted.py``; raises when there is none).
+    (weights.npz) through the registry, a .keras archive, or a TF SavedModel
+    (converted and cached, or run through TF on the host when it is not a
+    Keras model; both need tensorflow unless the cache is current).
 
     Morepork heads are binary activations, not softmax classifiers
     (reference models end in sigmoid and are thresholded on the SUM of
@@ -118,7 +124,19 @@ def _load_morepork_model(path, device):
     default to a sigmoid output unless metadata says otherwise."""
     p = Path(path)
     if not ((p / "weights.npz").exists() or list(p.glob("*.keras"))):
-        p = converted_model_dir(p)
+        # the reference's input format: a TF SavedModel dir per member
+        # (src/identify_morepork.py:169-176)
+        try:
+            p = auto_convert_saved_model(p)
+        except ConversionError:
+            try:
+                return HostSavedModel(p)
+            except ImportError:
+                raise RuntimeError(
+                    f"morepork model at {path} is a TF SavedModel; converting "
+                    "or running it requires tensorflow (+ tf_keras), or "
+                    "pre-convert offline with tools/convert_model.py"
+                )
     try:
         cfg = ModelConfig.load(p)
     except FileNotFoundError:

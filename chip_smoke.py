@@ -107,6 +107,25 @@
    preset; cold, warm, profiled, the first two on the CPU, confidences
    within 2); every kernel count is reset around each run and checked as on
    the TuiNet paths, and the batch's profile may hold no max-pool kernel;
+7b. the upload path (``check_upload``): the native PCM encoder builds
+   (``native/pcmcodec.cpp``); the card's decode (``io/pcmcodec.py``) equals
+   ``decode_pcm_np`` bit for bit on the fast batch's 8 WAVs and on a
+   hand-built encoding (``codec_edge_case``: a width-32 tier, exceptions in
+   a width-0 block, int32 wraparound) at orders 0-3; the exact CLI and the
+   fast batch equal with AAT_WIRE_CODEC 0 and 1, the 24-WAV backlog equal
+   through the stream (dispatch on the caller's thread) and through a
+   one-worker dispatch (the JAX package's AAT_ASYNC_UPLOAD default, timed
+   here as the alternative the port does not take) with the codec on and
+   off, every stream run's launches
+   checked; the encode's host ms, the wire ratio, the decode's ms and
+   device operations against the pinned raw copy's, the exact CLI's warm
+   wall with the codec on and off (A B B A B A A B) and the backlog's
+   audio-s/s in the four settings (forwards, then backwards: ten pairs of
+   stream and worker a codec setting, with the worker's wins); a morepork
+   member with a stale conversion raises the JAX package's RuntimeError
+   with tensorflow hidden, a current one loads; one exact CLI run under
+   AAT_TRACE_DIR leaves a trace naming ``stft_mag_fft_kernel`` and
+   ``row_medians_kernel``;
 8. ``analyse --old-cacophony-index`` on the 48 kHz and the 44.1 kHz WAV,
    the card's table equal to the CPU's;
 9. the side paths (``check_morepork``, ``check_embeddings``,
@@ -157,8 +176,9 @@
    two ranks sharing one card, not a scaling figure;
 12. prints one JSON line of the EfficientNetB0 numbers, one of the packed
    morphology's, one of the side paths', one of training's, one of the
-   scale-out phase's, one describing every kernel, the card's name and
-   power limit, then the last line ``{"ok": true, "device": {...}}``.
+   scale-out phase's, one of the upload path's, one describing every
+   kernel, the card's name and power limit, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
 line; without a CUDA device it exits non-zero at once.
@@ -177,6 +197,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -250,6 +271,30 @@ def make_recording(seconds=SECONDS, silent_from=SILENT_FROM, seed=0, sr=SR):
         y[m] += (0.5 * np.sin(phase)).astype(np.float32)
     y[int(silent_from * sr):] = 0.0
     return y
+
+
+def codec_edge_case(order, seed=0):
+    """A hand-built wire-codec encoding (``io/pcmcodec.py::EncodedPCM``,
+    [2, 4 BLOCK]) that ``encode_pcm`` never emits: a width-32 tier of full
+    32-bit words, a width-7 tier, width-0 blocks (implicit) with exceptions
+    inside one, pad rows and a pad exception on the dummy row, and
+    full-range zigzag values whose `order` integrations wrap in int32
+    before the int16 cast."""
+    from audio_analysis_torch.io import pcmcodec as pc
+
+    rng = np.random.RandomState(seed)
+    b, t = 2, 4 * pc.BLOCK
+    n_blocks = b * t // pc.BLOCK
+    tiers = {}
+    for w, blocks in ((32, [1, 5]), (7, [3, 6])):
+        z = rng.randint(0, 1 << w, size=(len(blocks), pc.BLOCK), dtype=np.uint64)
+        words = pc._pack_words(z.astype(np.uint32), w)
+        tiers[w] = (np.asarray(blocks + [n_blocks], np.int32),  # one pad row
+                    np.concatenate([words, np.zeros((1, words.shape[1]), np.int32)]))
+    pos = np.asarray([3, 2 * pc.BLOCK + 9, 2 * pc.BLOCK + 200, n_blocks * pc.BLOCK], np.int32)
+    val = rng.randint(0, 1 << 32, size=len(pos), dtype=np.uint64).astype(np.uint32)
+    val[-1] = 0  # the pad exception
+    return pc.EncodedPCM((b, t), t - 5, order, tiers, (pos, val.view(np.int32)))
 
 
 def golden_recording():
@@ -715,8 +760,9 @@ def mag_entry(name, y, n_fft, hop, iters):
 def row_medians_entry(name, spec, nvf):
     """row_medians on `spec` [B, bins, T] over the first nvf[b] columns,
     bit for bit against its plain version (and, for the first recording,
-    np.median), with its time and bound (the spectrogram read once, the
-    medians written once); returns the measurement."""
+    np.median), with its time, the library call's (``torch.nanquantile``)
+    and its bound (the spectrogram read once, the medians written once);
+    returns the measurement."""
     import torch
 
     from audio_analysis_torch.ops import medians as md
@@ -730,14 +776,25 @@ def row_medians_entry(name, spec, nvf):
     np_row = np.median(spec[0, :, :nv0].cpu().numpy(), axis=1).astype(np.float32)
     if not np.array_equal(got[0, :, 0].cpu().numpy(), np_row):
         raise AssertionError(f"{name}: differs from np.median")
+    # the library call: nanquantile's midpoint over the invalid columns set
+    # to NaN (the masking is the input's preparation, outside the timing)
+    valid = torch.arange(spec.shape[-1], device=spec.device) < torch.as_tensor(
+        nvf, device=spec.device).reshape(-1, 1, 1)
+    masked = torch.where(valid, spec, float("nan"))
+
+    def library():
+        return torch.nanquantile(masked, 0.5, dim=-1, keepdim=True, interpolation="midpoint")
+
     m = dict(
         name=name, route="cuda", source="audio_analysis_torch/csrc/medians.cu",
         replaces="audio_analysis_tpu/ops/pallas/medians.py:87 (_kernel_row_medians)",
         max_abs_err=0.0, max_rel=0.0, ms=time_ms(lambda: md.row_medians(spec, nvf), 10),
-        plain_ms=time_ms(lambda: md.row_medians_plain(spec, nvf), 3), library_ms=None,
+        plain_ms=time_ms(lambda: md.row_medians_plain(spec, nvf), 3),
+        library_ms=time_ms(library, 3), library_equal=bool(torch.equal(library(), got)),
         bound_ms=(spec.numel() + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         shape=list(spec.shape), nvf=[int(v) for v in nvf],
     )
+    del masked
     log(json.dumps(m))
     return m
 
@@ -745,9 +802,9 @@ def row_medians_entry(name, spec, nvf):
 def col_medians_entry(name, spec):
     """col_medians on `spec` [B, bins, T] over all rows, bit for bit against
     its plain version (every column, the all-zero tail past the valid frames
-    included) and, for the first recording, np.median, with its time and
-    bound (the spectrogram read once, the medians written once); returns
-    the measurement."""
+    included) and, for the first recording, np.median, with its time, the
+    library call's (``torch.quantile``) and its bound (the spectrogram read
+    once, the medians written once); returns the measurement."""
     import torch
 
     from audio_analysis_torch.ops import medians as md
@@ -760,11 +817,15 @@ def col_medians_entry(name, spec):
     np_col = np.median(spec[0].cpu().numpy(), axis=0).astype(np.float32)
     if not np.array_equal(got[0, 0].cpu().numpy(), np_col):
         raise AssertionError(f"{name}: differs from np.median")
+
+    def library():  # quantile's midpoint over the rows
+        return torch.quantile(spec, 0.5, dim=-2, keepdim=True, interpolation="midpoint")
     m = dict(
         name=name, route="cuda", source="audio_analysis_torch/csrc/medians.cu",
         replaces="audio_analysis_tpu/ops/pallas/medians.py:95 (_kernel_col_medians)",
         max_abs_err=0.0, max_rel=0.0, ms=time_ms(lambda: md.col_medians(spec), 10),
-        plain_ms=time_ms(lambda: md.col_medians_plain(spec), 3), library_ms=None,
+        plain_ms=time_ms(lambda: md.col_medians_plain(spec), 3),
+        library_ms=time_ms(library, 3), library_equal=bool(torch.equal(library(), got)),
         bound_ms=(spec.numel() + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         shape=list(spec.shape),
     )
@@ -1478,6 +1539,290 @@ def check_golden(device):
         if got[k] != ref[k]:
             raise AssertionError(f"golden {k}: {got[k]} vs {ref[k]}")
     compare_results(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the upload path: the wire codec, the stream against one worker, conversion
+# and tracing
+# ---------------------------------------------------------------------------
+
+# A B B A rounds: the exact CLI's codec on/off in two (A B B A B A A B), the
+# backlog's four settings in five (forwards, then backwards: ten runs each)
+EXACT_TURNS, BACKLOG_TURNS = 2, 5
+
+
+def stream_one_worker(analyzer, batches, sr=None, meta_batches=None, analyse_tracks=False,
+                      timer=None):
+    """``BatchAnalyzer.analyse_stream`` with batch k+1's prepare and
+    dispatch on one worker thread while this thread finishes batch k: the
+    JAX package's AAT_ASYNC_UPLOAD default
+    (audio_analysis_tpu/pipeline/serve.py:187-228), which the port does
+    not take; here only to time it against the port's stream. The worker
+    makes the analyzer's device its current one; the kernel counters are
+    not read after it (two threads count at once)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from audio_analysis_torch.utils.runtime import StageTimer
+
+    timer = timer or StageTimer()
+    metas = iter(meta_batches) if meta_batches is not None else None
+    index = analyzer.device.index
+    pool = ThreadPoolExecutor(max_workers=1, initializer=torch.cuda.set_device,
+                              initargs=(torch.cuda.current_device() if index is None else index,))
+    try:
+        prev = None
+        for batch in batches:
+            md = next(metas) if metas is not None else None
+            fut = pool.submit(analyzer._dispatch, batch, sr, md, analyse_tracks)
+            if prev is not None:
+                with timer.stage("dispatch_wait"):
+                    handle = prev.result()
+                yield analyzer._finish(handle, timer=timer)
+            prev = fut
+        if prev is not None:
+            with timer.stage("dispatch_wait"):
+                handle = prev.result()
+            yield analyzer._finish(handle, timer=timer)
+    finally:
+        pool.shutdown(wait=True)
+
+
+def pair_wins(a, b):
+    """How many of the pairs (a[i], b[i]) b wins (ties count for neither),
+    the medians and the spread of a's runs (its quartiles' distance)."""
+    q = statistics.quantiles(a, n=4)
+    return {"pairs": len(a), "wins": sum(y > x for x, y in zip(a, b)),
+            "losses": sum(y < x for x, y in zip(a, b)),
+            "median_a": statistics.median(a), "median_b": statistics.median(b),
+            "spread_a": q[2] - q[0]}
+
+
+@contextlib.contextmanager
+def env(**values):
+    """os.environ with `values` set (None: unset), restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def without_volatile(res):
+    """A result JSON without its wall-clock fields."""
+    return {k: v for k, v in res.items() if k not in ("processing_time_seconds", "timing")}
+
+
+def in_turns(configs, run, turns):
+    """run(config) over `configs` forwards, then backwards, `turns` times
+    (A B B A ...); returns {config: [result, ...]}."""
+    out = {c: [] for c in configs}
+    for i in range(turns):
+        for c in (configs if i % 2 == 0 else configs[::-1]):
+            out[c].append(run(c))
+        for c in (configs[::-1] if i % 2 == 0 else configs):
+            out[c].append(run(c))
+    return out
+
+
+def decode_timing(stacked):
+    """The wire codec on the int16 [B, T] batch `stacked`: the native
+    encode's host ms, the wire ratio, the card's decode (its copy of the
+    encoded words included) against the pinned raw int16 copy, each as CUDA
+    events over 10 calls and as the host's wall to a synchronize, and the
+    device operations one decode queues (torch.profiler)."""
+    import torch
+
+    from audio_analysis_torch.io import pcmcodec as pc
+
+    t0 = time.perf_counter()
+    enc = pc.encode_pcm(stacked)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    encode_ms = min(encode_ms, *(_wall_ms(lambda: pc.encode_pcm(stacked)) for _ in range(3)))
+    pinned = torch.from_numpy(stacked).pin_memory()
+
+    def decode():
+        return pc.decode_pcm(enc, "cuda")
+
+    def raw():
+        return pinned.to("cuda", non_blocking=True)
+
+    prof = profile_device(decode)
+    return {"shape": list(stacked.shape), "raw_bytes": int(stacked.nbytes),
+            "wire_bytes": int(pc.wire_bytes(enc)),
+            "wire_ratio": pc.wire_bytes(enc) / stacked.nbytes, "order": enc.order,
+            "tiers": len(enc.tiers), "exceptions": 0 if enc.exceptions is None
+            else int(len(enc.exceptions[0])),
+            "encode_ms": encode_ms, "decode_ms": time_ms(decode, 10),
+            "raw_copy_ms": time_ms(raw, 10),
+            "decode_wall_ms": min(_wall_ms(decode) for _ in range(5)),
+            "raw_copy_wall_ms": min(_wall_ms(raw) for _ in range(5)),
+            "decode_device_ops": prof["device_kernels"],
+            "decode_device_busy_ms": prof["device_busy_ms"]}
+
+
+def _wall_ms(fn):
+    import torch
+
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def check_upload(tmp, wav, model_dir, wavs, backlog, models, exact_path, fast_path,
+                 device="cuda"):
+    """The upload path on the card: the native encoder builds; the card's
+    decode equals decode_pcm_np bit for bit on the fast batch's eight WAVs
+    and on ``codec_edge_case`` at every order; the exact CLI and the fast
+    batch give equal results with AAT_WIRE_CODEC 0 and 1, and the backlog
+    through the stream and through ``stream_one_worker`` with the codec on
+    and off; every stream run's launches checked; the decode's and the
+    encode's timings, the exact CLI's warm wall with the codec on and off
+    and the backlog's audio-s/s in each of the four settings, in turns, with
+    the worker's wins over ten pairs a codec setting; a morepork member with a stale
+    conversion raises without tensorflow, a current one loads; and a trace
+    of one exact CLI run (``utils/profiling.py::maybe_trace``) names the
+    detection kernels. Returns the measurements and the launches."""
+    import torch
+
+    from audio_analysis_torch.io import pcmcodec as pc
+    from audio_analysis_torch.io.audio import load_recording
+    from audio_analysis_torch.native import load_pcmcodec_library
+    from audio_analysis_torch.pipeline import morepork as mp
+    from audio_analysis_torch.pipeline.serve import BatchAnalyzer
+    from audio_analysis_torch.utils.profiling import maybe_trace
+    from audio_analysis_torch.utils.runtime import StageTimer
+
+    t_phase = time.perf_counter()
+    if load_pcmcodec_library() is None:
+        raise AssertionError("the native PCM encoder (native/pcmcodec.cpp) did not build")
+    with env(AAT_WIRE_CODEC=None):
+        if pc.wire_codec_enabled():
+            raise AssertionError("AAT_WIRE_CODEC unset: the codec must be off")
+    stacked = np.stack([load_recording(w, prefer_int16=True)[0] for w in wavs])
+    if stacked.dtype != np.int16:
+        raise AssertionError(f"the batch's WAVs load as {stacked.dtype}")
+    enc = pc.encode_pcm(stacked)
+    got = pc.decode_pcm(enc, device).cpu().numpy()
+    if not (np.array_equal(got, pc.decode_pcm_np(enc)) and np.array_equal(got, stacked)):
+        raise AssertionError("the card's decode of the batch differs from decode_pcm_np")
+    for order in range(4):
+        e = codec_edge_case(order, seed=order)
+        if not np.array_equal(pc.decode_pcm(e, device).cpu().numpy(), pc.decode_pcm_np(e)):
+            raise AssertionError(f"the card's decode of codec_edge_case({order}) differs")
+    m = {"decode": decode_timing(stacked)}
+    log(json.dumps({"upload_decode": m["decode"], "card": card_line()}))
+    launches = {}
+
+    # the exact CLI, codec on and off, in turns
+    def exact(codec):
+        with env(AAT_WIRE_CODEC=codec, AAT_FAST=None):
+            res, wall, n = run_cli(wav, model_dir, device)
+        require_launches(f"upload exact codec {codec}", n, exact_path)
+        launches[f"analyse_exact_codec_{codec}"] = n
+        return without_volatile(res), wall
+
+    exact("1"), exact("0")  # warm both
+    runs = in_turns(["1", "0"], exact, EXACT_TURNS)
+    if any(r != runs["1"][0][0] for c in runs for r, _ in runs[c]):
+        raise AssertionError("the exact CLI differs between AAT_WIRE_CODEC 1 and 0")
+    m["exact_cli_wall_s"] = {f"codec_{c}": [w for _, w in runs[c]] for c in runs}
+
+    # the fast batch, codec on and off
+    with env(AAT_FAST="1"):
+        batch = {}
+        for codec in ("1", "0"):
+            with env(AAT_WIRE_CODEC=codec):
+                res, wall, n = run_batch_cli(wavs, models, device)
+            require_launches(f"upload batch codec {codec}", n, fast_path)
+            launches[f"batch_fast_codec_{codec}"] = n
+            batch[codec] = without_times(res)
+        if batch["1"] != batch["0"]:
+            raise AssertionError("the fast batch differs between AAT_WIRE_CODEC 1 and 0")
+
+        # the backlog through the stream and one worker, codec on and off,
+        # in turns
+        backlog_path = {k: 3 * least for k, least in fast_path.items()}
+        configs = [(mode, codec) for codec in ("0", "1") for mode in ("stream", "worker")]
+        stages = {}
+
+        def run_backlog(config):
+            mode, codec = config
+            timer = StageTimer()
+            worker = (mock.patch.object(BatchAnalyzer, "analyse_stream", stream_one_worker)
+                      if mode == "worker" else contextlib.nullcontext())
+            with env(AAT_WIRE_CODEC=codec), worker:
+                res, wall, n = run_batch_cli(backlog, models, device, timer)
+            if mode == "stream":
+                require_launches(f"upload backlog codec {codec}", n, backlog_path)
+                launches[f"backlog_fast_codec_{codec}"] = n
+            stages.setdefault(f"{mode}_codec_{codec}", []).append(timer.as_dict())
+            return without_times(res), wall
+
+        backlogs = in_turns(configs, run_backlog, BACKLOG_TURNS)
+    first = backlogs[configs[0]][0][0]
+    if any(r != first for c in configs for r, _ in backlogs[c]):
+        raise AssertionError("the backlog differs between stream and worker or codec settings")
+    if first[:8] != batch["1"]:
+        raise AssertionError("the backlog's first batch differs from the fast batch")
+    rate = {c: [len(backlog) * SECONDS / w for _, w in backlogs[c]] for c in configs}
+    m["backlog_audio_s_per_s"] = {f"{mode}_codec_{codec}": rate[(mode, codec)]
+                                  for mode, codec in configs}
+    m["worker_vs_stream"] = {f"codec_{codec}": pair_wins(rate[("stream", codec)],
+                                                         rate[("worker", codec)])
+                             for codec in ("0", "1")}
+    m["codec_on_vs_off"] = pair_wins(rate[("stream", "0")], rate[("stream", "1")])
+    log(json.dumps({"upload_turns": {k: m[k] for k in ("exact_cli_wall_s", "backlog_audio_s_per_s",
+                                                        "worker_vs_stream", "codec_on_vs_off")},
+                    "backlog_stages": stages, "card": card_line()}))
+
+    # conversion: without tensorflow a stale member raises the JAX
+    # package's RuntimeError, a current one loads
+    ensemble = morepork_ensemble(tmp / "convert-check", members=2)
+    stale = tmp / "convert-check-stale"
+    shutil.copytree(ensemble / "member0", stale)
+    (stale / ".aat_native" / ".stamp").write_text("1")
+    hidden = {k: sys.modules.get(k) for k in ("tensorflow", "tf_keras")}
+    sys.modules.update({k: None for k in hidden})
+    try:
+        mp._load_morepork_model(ensemble / "member0", torch.device(device))
+        try:
+            mp._load_morepork_model(stale, torch.device(device))
+        except RuntimeError as e:
+            if "requires tensorflow" not in str(e):
+                raise
+        else:
+            raise AssertionError("a stale conversion loaded without tensorflow")
+    finally:
+        for k, v in hidden.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+    # tracing: one exact CLI run under AAT_TRACE_DIR
+    with env(AAT_TRACE_DIR=str(tmp / "traces"), AAT_FAST=None):
+        with maybe_trace("exact_cli"):
+            run_cli(wav, model_dir, device)
+    trace = json.loads((tmp / "traces" / "exact_cli" / "trace.json").read_text())
+    kernels = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"}
+    for name in ("stft_mag_fft_kernel", "row_medians_kernel"):
+        if not any(name in k for k in kernels):
+            raise AssertionError(f"the trace names no {name}: {sorted(kernels)[:20]}")
+    m["trace_kernels"] = len(kernels)
+    m["phase_s"] = time.perf_counter() - t_phase
+    return m, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2552,6 +2897,12 @@ def main():
         del nfft_captured, x
         os.environ.pop("AAT_FAST")
 
+        # the upload path: the wire codec, the stream against one worker,
+        # conversion without tensorflow, a trace of the exact CLI
+        upload, upload_launches = check_upload(tmp, wav, model_dir, wavs, backlog, models,
+                                               exact_path, fast_path)
+        log(f"upload phase {upload['phase_s']:.1f} s")
+
         # EfficientNetB0 (the reference's flagship classifier), read from
         # .keras by the port's HDF5 reader: alone, then through the exact
         # analyse CLI and the fast batch
@@ -2641,7 +2992,8 @@ def main():
                                                fast_path),
                 "mfcc": check_mfcc(tmp, wav, wavs, pcm, exact_path, fast_path)}
         side_launches = {"analyse_morepork": side["morepork"]["launches"],
-                         **side["embeddings"]["launches"], **side["mfcc"]["launches"]}
+                         **side["embeddings"]["launches"], **side["mfcc"]["launches"],
+                         **upload_launches}
 
         # training: TuiNet from seeded weights, EfficientNetB0 fine-tuned,
         # each served by the exact CLI
@@ -2690,6 +3042,8 @@ def main():
                                  **{path: n[key] for path, n in side_launches.items()}}} | {
             k: m.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "max_rel", "shape")})
+        if "library_equal" in m:  # the medians: the library call bit for bit?
+            out[-1]["library_equal"] = m["library_equal"]
         if base in ROUTES:  # the DFTs: which route (the bf16 direct route's main-path count)
             out[-1] |= {"dft_route": m["dft_route"], "library_ms_f64": m.get("library_ms_f64")}
             if base == "stft_mel_bf16":
@@ -2732,6 +3086,17 @@ def main():
         "train": [{k: r[k] for k in ("mesh", "rank", "loss_rel", "worst_head_over_tol",
                                      "worst_body_over_tol", "worst_bn_stats_over_tol",
                                      "step_ms")} for r in scaleout["train"]]}}))
+    log(json.dumps({"upload_summary": {
+        "decode": {k: upload["decode"][k] for k in (
+            "wire_ratio", "encode_ms", "decode_ms", "raw_copy_ms", "decode_wall_ms",
+            "raw_copy_wall_ms", "decode_device_ops")},
+        "exact_cli_wall_s_median": {k: statistics.median(v)
+                                    for k, v in upload["exact_cli_wall_s"].items()},
+        "backlog_audio_s_per_s_median": {k: statistics.median(v) for k, v in
+                                         upload["backlog_audio_s_per_s"].items()},
+        "worker_vs_stream": upload["worker_vs_stream"],
+        "codec_on_vs_off": upload["codec_on_vs_off"],
+        "trace_kernels": upload["trace_kernels"], "phase_s": upload["phase_s"]}}))
     log(json.dumps({"kernels": out}))
     log(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

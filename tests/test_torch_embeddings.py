@@ -200,7 +200,9 @@ def test_embedder_loader_refuses_as_it_should(models, tmp_path):
     """No path: the JAX package would download the TF-Hub embedder; the port
     raises RuntimeError (so does the JAX package without tensorflow_hub). A
     missing artifact raises FileNotFoundError in both. A SavedModel dir is
-    read from its converted copy, and raises without one."""
+    read from its current converted copy; without one both convert it, and
+    the placeholder saved_model.pb fails in both alike: ModuleNotFoundError
+    without tensorflow, tf.saved_model.load's ValueError with it."""
     with pytest.raises(RuntimeError, match="embedding_model"):
         emb.load_embedder(None, "cpu")
     if importlib.util.find_spec("tensorflow_hub") is None:
@@ -213,8 +215,21 @@ def test_embedder_loader_refuses_as_it_should(models, tmp_path):
     saved = tmp_path / "saved"
     (saved / ".aat_native").mkdir(parents=True)
     (saved / "saved_model.pb").write_bytes(b"")
-    with pytest.raises(RuntimeError, match="is missing"):
-        emb.load_embedder(str(saved), "cpu")
+    errors = []
+    for hide in (True, False):
+        if not hide and importlib.util.find_spec("tensorflow") is None:
+            continue
+        with pytest.MonkeyPatch.context() as m:
+            if hide:
+                for name in ("tensorflow", "tf_keras"):
+                    m.setitem(sys.modules, name, None)
+            for load in (lambda: emb.load_embedder(str(saved), "cpu"),
+                         lambda: jemb.load_embedder(str(saved))):
+                with pytest.raises(ModuleNotFoundError if hide else ValueError) as e:
+                    load()
+                errors.append(str(e.value))
+    assert errors[0::2] == errors[1::2]
+    assert not (saved / ".aat_native" / ".stamp").exists()
     shutil.copy(models["embedder"], saved / ".aat_native" / "audioModel.keras")
     (saved / ".aat_native" / ".stamp").write_text(str((saved / "saved_model.pb").stat().st_mtime_ns))
     x = torch.from_numpy(np.random.RandomState(1).randn(2, 5 * emb.EMBED_SR).astype(np.float32))

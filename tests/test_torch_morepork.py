@@ -1,13 +1,15 @@
 """The port's morepork detector (``pipeline/morepork.py``) and its lookup of
-converted SavedModels (``io/converted.py``) against the JAX package on the
+converted SavedModels (``io/convert.py``) against the JAX package on the
 CPU: the spectrogram, the sample grid (negative starts on a recording
 shorter than 3 s) and the dB samples at three rates, the label loop over
 tests/test_morepork.py's 400 fuzz seeds, two-member ensembles of native
 and of ``.keras`` members end to end, the CLI JSON with a converted
-three-member ensemble, the empty-directory NaN quirk, and the
-converted-cache layout."""
+three-member ensemble, the empty-directory NaN quirk, the
+converted-cache layout, and what a stale or missing conversion does with
+and without tensorflow."""
 
 import contextlib
+import importlib.util
 import io
 import json
 import shutil
@@ -22,7 +24,7 @@ import torch
 from audio_analysis_tpu.io import convert as jconvert
 from audio_analysis_tpu.pipeline import morepork as jmp
 
-from audio_analysis_torch.io import converted
+from audio_analysis_torch.io import convert
 from audio_analysis_torch.pipeline import morepork as mp
 
 import test_morepork  # noqa: E402  (the label loop's fuzz seeds and oracle)
@@ -175,32 +177,62 @@ def test_empty_model_dir_keeps_the_nan_quirk(tmp_path):
 def test_converted_cache_is_found_as_the_jax_package_finds_it(ensemble, tmp_path, monkeypatch):
     member = ensemble / "member0"
     assert mp.model_paths(str(ensemble)) == jmp.model_paths(str(ensemble))
-    assert converted.converted_model_dir(member) == member / ".aat_native"
+    assert convert.auto_convert_saved_model(member) == member / ".aat_native"
     assert jconvert.auto_convert_saved_model(member) == member / ".aat_native"
     # a dir that is not writable keys its cache under ~/.cache
     monkeypatch.setenv("HOME", str(tmp_path))
-    monkeypatch.setattr(converted.os, "access", lambda *a: False)
-    assert converted.cache_dir_for(member) == jconvert._cache_dir_for(member)
-    assert str(converted.cache_dir_for(member)).startswith(str(tmp_path / ".cache"))
+    monkeypatch.setattr(convert.os, "access", lambda *a: False)
+    assert convert._cache_dir_for(member) == jconvert._cache_dir_for(member)
+    assert str(convert._cache_dir_for(member)).startswith(str(tmp_path / ".cache"))
+
+
+def _hide_tensorflow(monkeypatch):
+    """tensorflow and tf_keras unimportable, as on a machine without them."""
+    for name in ("tensorflow", "tf_keras"):
+        monkeypatch.setitem(sys.modules, name, None)
 
 
 @pytest.mark.parametrize("fault", ["stale", "missing"])
-def test_stale_or_missing_conversion_raises(ensemble, tmp_path, fault):
-    """The port never converts: a stamp that is not saved_model.pb's mtime,
-    or no stamp, raises naming tools/convert_model.py and ROADMAP item 11,
-    from the CLI's loader too."""
-    member = tmp_path / "member"
-    shutil.copytree(ensemble / "member0", member)
-    stamp = member / ".aat_native" / ".stamp"
-    if fault == "stale":
-        stamp.write_text("1")
-    else:
-        stamp.unlink()
-    with pytest.raises(RuntimeError, match=f"is {fault}.*convert_model.py.*item 11"):
-        converted.converted_model_dir(member)
-    y = (0.01 * np.random.RandomState(0).randn(48000 * 4)).astype(np.float32)
-    with pytest.raises(RuntimeError, match="convert_model.py"):
-        mp.identify_morepork_frames(y, 48000, str(tmp_path), device="cpu")
+def test_stale_or_missing_conversion_raises(ensemble, tmp_path, monkeypatch, fault):
+    """A stamp that is not saved_model.pb's mtime, or no stamp, makes both
+    packages' loaders convert the member. Without tensorflow that raises
+    the JAX package's RuntimeError, from the CLI's loader too; with it, the
+    fixture's placeholder saved_model.pb fails in the port as in the JAX
+    package (tf.saved_model.load's ValueError), and no stamp is written."""
+    members = {}
+    for side in ("port", "jax"):
+        member = tmp_path / side / "member"
+        shutil.copytree(ensemble / "member0", member)
+        stamp = member / ".aat_native" / ".stamp"
+        if fault == "stale":
+            stamp.write_text("1")
+        else:
+            stamp.unlink()
+        members[side] = member
+
+    def same_error(load_port, load_jax, kind):
+        with pytest.raises(kind) as got:
+            load_port()
+        with pytest.raises(kind) as ref:
+            load_jax()
+        assert type(got.value) is type(ref.value)
+        assert str(got.value) == str(ref.value).replace(str(members["jax"]), str(members["port"]))
+        return got.value
+
+    with monkeypatch.context() as m:
+        _hide_tensorflow(m)
+        err = same_error(lambda: mp._load_morepork_model(members["port"], "cpu"),
+                         lambda: jmp._load_morepork_model(members["jax"]), RuntimeError)
+        assert "requires tensorflow" in str(err) and "convert_model.py" in str(err)
+        y = (0.01 * np.random.RandomState(0).randn(48000 * 4)).astype(np.float32)
+        with pytest.raises(RuntimeError, match="requires tensorflow"):
+            mp.identify_morepork_frames(y, 48000, str(tmp_path / "port"), device="cpu")
+    if importlib.util.find_spec("tensorflow") is not None:
+        same_error(lambda: mp._load_morepork_model(members["port"], "cpu"),
+                   lambda: jmp._load_morepork_model(members["jax"]), ValueError)
+    for member in members.values():
+        stamp = member / ".aat_native" / ".stamp"
+        assert (stamp.read_text() == "1") if fault == "stale" else not stamp.exists()
 
 
 def test_morepork_needs_cuda_unless_cpu_is_asked_for(ensemble, tmp_path):
