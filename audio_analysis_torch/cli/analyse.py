@@ -3,6 +3,9 @@
 format, sidecar merge semantics, and exit-code contract (trap everything,
 log, exit 1) — as the JAX package's cli/analyse.py, plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels).
+With AAT_TRACE_DIR set, the run writes a torch.profiler trace of its
+spans and kernels to ``$AAT_TRACE_DIR/analyse/trace.json``
+(``utils/profiling.py::maybe_trace``).
 
     python -m audio_analysis_torch.cli.analyse -o FILE --bird-model DIR
 """
@@ -13,6 +16,7 @@ import sys
 import time
 
 from audio_analysis_torch.io.metadata import jsdump, write_sidecar_result
+from audio_analysis_torch.utils.profiling import maybe_trace, span
 
 
 def none_or_str(value):
@@ -94,6 +98,11 @@ def init_logging():
 def run(argv=None):
     args = parse_args(argv)
     init_logging()
+    with maybe_trace("analyse"):
+        return _analyse(args)
+
+
+def _analyse(args):
     t0 = time.time()
 
     if args.old_cacophony_index:
@@ -117,11 +126,12 @@ def run(argv=None):
 
     t1 = time.time()
     summary["processing_time_seconds"] = round(t1 - t0, 1)
-    if args.meta_to_stdout:
-        print(jsdump(summary))
-    else:
-        metadata_file = write_sidecar_result(args.file, summary)
-        logging.info("Writing metadata to %s", metadata_file)
+    with span("write"):
+        if args.meta_to_stdout:
+            print(jsdump(summary))
+        else:
+            metadata_file = write_sidecar_result(args.file, summary)
+            logging.info("Writing metadata to %s", metadata_file)
     return summary
 
 

@@ -42,6 +42,7 @@ from audio_analysis_torch.ops.medians import masked_medians_rowcol
 from audio_analysis_torch.ops.melspec import stft_frames, stft_mag
 from audio_analysis_torch.ops.morphology import dilate, erode, packed_dilate, packed_erode
 from audio_analysis_torch.pipeline.frontend import dft_mel, frontend_level
+from audio_analysis_torch.utils.profiling import span
 
 ENDSCAN_MELS = 120
 
@@ -153,23 +154,27 @@ def detect_batch_mask(frames, n_valid, *, sr, hop_length=281, n_fft=4096, level=
     bit first), all on the frames' device.
     ``level`` is the end-scan's frontend level (None: resolved now); the
     |STFT| and the medians are exact at every level."""
-    framesf = _to_float(frames)
-    n_valid = torch.as_tensor(n_valid, device=framesf.device).to(torch.int64)
-    mx, mn = _batch_chunk_flatness(framesf, sr=sr, hop_length=hop_length, level=level)
-    found, flat_sec, mask_valid = _endscan_decision(
-        n_valid, mx, mn, sr=sr, hop_length=hop_length
-    )
-    idx = torch.arange(framesf.shape[1], device=framesf.device)
-    fz = torch.where(idx[None, :] < mask_valid[:, None], framesf, 0.0).contiguous()
-    spec = stft_mag(fz, n_fft=n_fft, hop_length=hop_length, power=1.0)
-    nvf = 1 + mask_valid // hop_length  # valid frames [B]
-    col_valid = torch.arange(spec.shape[-1], device=spec.device)[None, :] < nvf[:, None]
-    a_max = torch.where(col_valid[:, None, :], spec, 0.0).amax(dim=(1, 2), keepdim=True)
-    spec_n = spec / a_max
-    row_m, col_m = masked_medians_rowcol(spec_n, nvf)
-    mask = _mask_threshold_morph(
-        spec_n, row_m, col_m, col_valid, sr=sr, hop_length=hop_length, n_fft=n_fft
-    )
+    with span("detect.endscan"):
+        framesf = _to_float(frames)
+        n_valid = torch.as_tensor(n_valid, device=framesf.device).to(torch.int64)
+        mx, mn = _batch_chunk_flatness(framesf, sr=sr, hop_length=hop_length, level=level)
+        found, flat_sec, mask_valid = _endscan_decision(
+            n_valid, mx, mn, sr=sr, hop_length=hop_length
+        )
+    with span("detect.stft_mag"):
+        idx = torch.arange(framesf.shape[1], device=framesf.device)
+        fz = torch.where(idx[None, :] < mask_valid[:, None], framesf, 0.0).contiguous()
+        spec = stft_mag(fz, n_fft=n_fft, hop_length=hop_length, power=1.0)
+    with span("detect.medians"):
+        nvf = 1 + mask_valid // hop_length  # valid frames [B]
+        col_valid = torch.arange(spec.shape[-1], device=spec.device)[None, :] < nvf[:, None]
+        a_max = torch.where(col_valid[:, None, :], spec, 0.0).amax(dim=(1, 2), keepdim=True)
+        spec_n = spec / a_max
+        row_m, col_m = masked_medians_rowcol(spec_n, nvf)
+    with span("detect.morph"):
+        mask = _mask_threshold_morph(
+            spec_n, row_m, col_m, col_valid, sr=sr, hop_length=hop_length, n_fft=n_fft
+        )
     return found, flat_sec, mask
 
 
@@ -204,18 +209,19 @@ def detect_batch_dispatch(frames, n_valid, sr, hop_length=281, n_fft=4096, level
     device (``n_valid`` [B] valid samples per recording): the end-scan, the
     masks, their packing to bits and the copy of the packed masks to the
     host. Returns a handle without waiting for the device."""
-    n_valid = np.asarray(n_valid, dtype=np.int64).reshape(-1)
-    found, flat_sec, words = detect_batch_mask(
-        frames, to_device_async(torch.from_numpy(n_valid), frames.device), sr=sr,
-        hop_length=hop_length, n_fft=n_fft, level=level,
-    )
-    width = stft_frames(frames.shape[-1], n_fft, hop_length)
-    packed = words_to_bytes(words, width)
-    host = [to_host_async(x) for x in (found, flat_sec, packed)]
-    copied = None
-    if frames.device.type == "cuda":
-        copied = torch.cuda.Event()
-        copied.record(torch.cuda.current_stream(frames.device))
+    with span("detect.enqueue"):
+        n_valid = np.asarray(n_valid, dtype=np.int64).reshape(-1)
+        found, flat_sec, words = detect_batch_mask(
+            frames, to_device_async(torch.from_numpy(n_valid), frames.device), sr=sr,
+            hop_length=hop_length, n_fft=n_fft, level=level,
+        )
+        width = stft_frames(frames.shape[-1], n_fft, hop_length)
+        packed = words_to_bytes(words, width)
+        host = [to_host_async(x) for x in (found, flat_sec, packed)]
+        copied = None
+        if frames.device.type == "cuda":
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(frames.device))
     return host, copied, width, n_valid, sr, hop_length, n_fft
 
 
@@ -224,16 +230,17 @@ def detect_batch_finish(handle):
     copy of the packed masks to the host, then run the native CCL of each
     recording in a host thread (the C++ labelling releases the GIL)."""
     host, copied, width, n_valid, sr, hop_length, n_fft = handle
-    if copied is not None:
-        copied.synchronize()
-    found, flat_sec, packed = (x.numpy() for x in host)
+    with span("detect.wait"):
+        if copied is not None:
+            copied.synchronize()
+        found, flat_sec, packed = (x.numpy() for x in host)
     b = len(n_valid)
 
     def one(i):
         stats = connected_components_with_stats_packed(packed[i], width)
         return _signals_from_stats(stats, sr, hop_length, n_fft)
 
-    with ThreadPoolExecutor(max_workers=max(1, min(8, b))) as ex:
+    with span("detect.ccl"), ThreadPoolExecutor(max_workers=max(1, min(8, b))) as ex:
         signals = list(ex.map(one, range(b)))
     return [
         (int(flat_sec[i]) if found[i] else float(n_valid[i]) / sr, signals[i])

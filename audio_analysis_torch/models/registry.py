@@ -21,6 +21,7 @@ from audio_analysis_torch.io.checkpoint import load_checkpoint_params
 from audio_analysis_torch.io.modelconfig import ModelConfig
 from audio_analysis_torch.models.birdnet import TuiNet, TuiNetConfig
 from audio_analysis_torch.models.keras_graph import KerasModel
+from audio_analysis_torch.utils.profiling import span
 from audio_analysis_torch.utils.runtime import env_flag, fast_mode
 
 _MODEL_CACHE = {}
@@ -91,7 +92,8 @@ def load_classifier(model_path, cfg: ModelConfig, device):
     key = (str(model_path.resolve()), stamp, str(device), _resolved_compute_dtype(cfg))
     model = _MODEL_CACHE.get(key)
     if model is None:
-        model = _load_uncached(model_path, cfg).to(device).eval().requires_grad_(False)
+        with span("models.build"):
+            model = _load_uncached(model_path, cfg).to(device).eval().requires_grad_(False)
         _MODEL_CACHE[key] = model
     return model
 

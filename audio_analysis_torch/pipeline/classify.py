@@ -49,6 +49,7 @@ from audio_analysis_torch.pipeline.samples import (
     pad_plan_to_bucket,
     plan_windows,
 )
+from audio_analysis_torch.utils.profiling import span
 from audio_analysis_torch.utils.runtime import StageTimer
 
 
@@ -185,15 +186,19 @@ def run_group(models, feat_cfg, frames_flat, padded_plan, n_tracks, is_efficient
     3-channel repeat follows the current group (:539-540). Returns
     (track means, features)."""
     if feats is None:
-        feats = features_for_config(gather_windows(float_pcm(frames_flat), padded_plan), sr,
-                                    feat_cfg, level=level)
-    x = feats.repeat_interleave(3, dim=-1) if is_efficientnet else feats
-    probs = None
-    for model in models:
-        p = model(x)
-        probs = p if probs is None else probs + p
-    probs = probs / len(models)
-    return _track_means(probs, padded_plan.track_index, n_tracks), feats
+        with span("infer.gather"):
+            grid = gather_windows(float_pcm(frames_flat), padded_plan)
+        with span("infer.frontend"):
+            feats = features_for_config(grid, sr, feat_cfg, level=level)
+    with span("infer.forward"):
+        x = feats.repeat_interleave(3, dim=-1) if is_efficientnet else feats
+        probs = None
+        for model in models:
+            p = model(x)
+            probs = p if probs is None else probs + p
+        probs = probs / len(models)
+        means = _track_means(probs, padded_plan.track_index, n_tracks)
+    return means, feats
 
 
 def run_embeddings_group(models, cfg: ModelConfig, embedder, frames, sr, tracks):
@@ -236,10 +241,11 @@ def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.r
         frames_np = frames_np.astype(np.float32)
     # int16 PCM uploads at half the bytes and converts (/32768) on device;
     # with the wire codec on it goes through the lossless codec (exact)
-    if frames_np.dtype == np.int16 and wire_codec_enabled():
-        frames_dev = upload_pcm(frames_np, dev)[0, : len(frames_np)]
-    else:
-        frames_dev = torch.from_numpy(np.ascontiguousarray(frames_np)).to(dev)
+    with span("upload"):
+        if frames_np.dtype == np.int16 and wire_codec_enabled():
+            frames_dev = upload_pcm(frames_np, dev)[0, : len(frames_np)]
+        else:
+            frames_dev = torch.from_numpy(np.ascontiguousarray(frames_np)).to(dev)
     with timer.stage("detect"):
         length, signals = detect(frames_dev, sr, level=level)
 
@@ -262,12 +268,13 @@ def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.r
     # group models: pre-filter models run after the main ensemble group
     # (reference :444-455)
     pre_models, mean_models = [], []
-    for model_file in models:
-        cfg = ModelConfig.load(Path(model_file))
-        if cfg.pre_model:
-            pre_models.append((model_file, cfg))
-        else:
-            mean_models.append((model_file, cfg))
+    with span("models"):
+        for model_file in models:
+            cfg = ModelConfig.load(Path(model_file))
+            if cfg.pre_model:
+                pre_models.append((model_file, cfg))
+            else:
+                mean_models.append((model_file, cfg))
     grouped_models = [mean_models]
     if pre_models:
         grouped_models.append(pre_models)
@@ -281,9 +288,10 @@ def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.r
             continue
         if len(model_group) > 1:
             logging.info("Meaning predictions as have multiple models")
-        predict_models = [
-            (load_classifier(Path(mf), cfg, dev), cfg) for mf, cfg in model_group
-        ]
+        with span("models"):
+            predict_models = [
+                (load_classifier(Path(mf), cfg, dev), cfg) for mf, cfg in model_group
+            ]
         cfg = predict_models[0][1]
         bird_labels.update(cfg.bird_labels)
 
@@ -298,9 +306,10 @@ def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.r
             continue
 
         if track_data is None:
-            plan = plan_for_config(frames_dev.shape[-1], sr, tracks, cfg, rng=rng)
-            has_windows = len(plan.base) > 0
-            track_data = (pad_plan_to_bucket(plan), has_windows, cfg)
+            with span("plan"):
+                plan = plan_for_config(frames_dev.shape[-1], sr, tracks, cfg, rng=rng)
+                has_windows = len(plan.base) > 0
+                track_data = (pad_plan_to_bucket(plan), has_windows, cfg)
         else:
             logging.info(
                 "Re using track data this will cuase problems if the STFT "
@@ -317,16 +326,20 @@ def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.r
             if plan.filter_specs and feats_cache is None:
                 # the filtered tracks' windows come from their band-passed
                 # samples; later groups reuse these features as they are
-                framesf = float_pcm(frames_dev)
-                grid = filter_windows(gather_windows(framesf, plan), [(framesf, plan, 0)], sr)
-                feats_cache = features_for_config(grid, sr, feat_cfg, level=level)
+                with span("infer.gather"):
+                    framesf = float_pcm(frames_dev)
+                    grid = filter_windows(gather_windows(framesf, plan), [(framesf, plan, 0)],
+                                          sr)
+                with span("infer.frontend"):
+                    feats_cache = features_for_config(grid, sr, feat_cfg, level=level)
             # like the reference's ``data = track_data`` (:525-528): later
             # groups reuse the FIRST group's features verbatim
             track_probs, feats_cache = run_group(
                 [m for m, _ in predict_models], feat_cfg, frames_dev, plan, plan.n_tracks,
                 cfg.is_efficientnet, sr=sr, level=level, feats=feats_cache,
             )
-            track_probs = track_probs.cpu().numpy()
+            with span("infer.wait"):
+                track_probs = track_probs.cpu().numpy()
 
         windows_per_track = np.bincount(plan.track_index, minlength=plan.n_tracks)
         apply_thresholds(tracks, track_probs, windows_per_track, cfg)

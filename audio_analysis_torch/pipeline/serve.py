@@ -101,6 +101,7 @@ from audio_analysis_torch.pipeline.ebird import filter_by_location
 from audio_analysis_torch.pipeline.embeddings import load_embedder
 from audio_analysis_torch.pipeline.frontend import frontend_level
 from audio_analysis_torch.pipeline.samples import WindowPlan, gather_windows, pad_plan_to_bucket
+from audio_analysis_torch.utils.profiling import span, span_args
 from audio_analysis_torch.utils.runtime import StageTimer, timings_on
 
 
@@ -202,19 +203,25 @@ class BatchAnalyzer:
 
         Batches are prepared and dispatched on this thread: the JAX
         package's AAT_ASYNC_UPLOAD and AAT_ENCODE_AHEAD worker threads are
-        not ported (ROADMAP Queue 3), and both variables are ignored."""
+        not ported (ROADMAP Queue 3), and both variables are ignored. Under
+        a recording profiler every mark of batch k (its stages and spans)
+        carries ``batch=k`` (``utils/profiling.py::span_args``)."""
         timer = timer or StageTimer()
         metas = iter(meta_batches) if meta_batches is not None else None
         prev = None
-        for batch in batches:
+        for k, batch in enumerate(batches):
             md = next(metas) if metas is not None else None
-            with timer.stage("dispatch"):
+            with span_args(batch=k), timer.stage("dispatch"):
                 handle = self._dispatch(batch, sr, md, analyse_tracks)
             if prev is not None:
-                yield self._finish(prev, timer=timer)
+                with span_args(batch=k - 1):
+                    results = self._finish(prev, timer=timer)
+                yield results
             prev = handle
         if prev is not None:
-            yield self._finish(prev, timer=timer)
+            with span_args(batch=k):
+                results = self._finish(prev, timer=timer)
+            yield results
 
     # -- two-phase internals --------------------------------------------------
 
@@ -282,15 +289,16 @@ class BatchAnalyzer:
             # the codec works on BLOCK-sample blocks; n_valid masks the
             # slightly longer bucket everywhere downstream
             t_bucket = -(-t_bucket // BLOCK) * BLOCK
-        stacked = torch.zeros((len(recordings), t_bucket),
-                              dtype=torch.int16 if all_i16 else torch.float32,
-                              pin_memory=self.device.type == "cuda")
-        rows = stacked.numpy()
-        n_valid = np.zeros(len(recordings), np.int32)
-        for i, r in enumerate(recordings):
-            rows[i, : len(r)] = r
-            n_valid[i] = len(r)
-        enc = encode_pcm(rows) if use_codec else None
+        with span("dispatch.stack"):
+            stacked = torch.zeros((len(recordings), t_bucket),
+                                  dtype=torch.int16 if all_i16 else torch.float32,
+                                  pin_memory=self.device.type == "cuda")
+            rows = stacked.numpy()
+            n_valid = np.zeros(len(recordings), np.int32)
+            for i, r in enumerate(recordings):
+                rows[i, : len(r)] = r
+                n_valid[i] = len(r)
+            enc = encode_pcm(rows) if use_codec else None
         return (stacked, enc, n_valid, t_bucket, int(sr or self.sr), meta_data, analyse_tracks)
 
     @torch.inference_mode()
@@ -301,10 +309,11 @@ class BatchAnalyzer:
             return None
         stacked, enc, n_valid, t_bucket, sr, meta_data, analyse_tracks = prep
         level = frontend_level()
-        if enc is not None:
-            frames_dev = upload_pcm_encoded(stacked, enc, self.device)
-        else:
-            frames_dev = to_device_async(stacked, self.device)
+        with span("dispatch.copy"):
+            if enc is not None:
+                frames_dev = upload_pcm_encoded(stacked, enc, self.device)
+            else:
+                frames_dev = to_device_async(stacked, self.device)
         detect_handle = (
             None if analyse_tracks
             else detect_batch_dispatch(frames_dev, n_valid, sr, level=level)
@@ -370,15 +379,19 @@ class BatchAnalyzer:
 
         track_offset = np.cumsum([0] + [len(t) for t in all_tracks])
         n_total = int(track_offset[-1])
-        combined = self._combine_plans(plans, t_bucket) if spectral else None
+        padded = None
+        if spectral and n_total > 0:
+            with timer.stage("plan"):
+                combined = self._combine_plans(plans, t_bucket)
+                if len(combined.base) > 0:
+                    padded = pad_plan_to_bucket(WindowPlan(
+                        base=combined.base, valid_lo=combined.valid_lo,
+                        valid_hi=combined.valid_hi, track_index=combined.track_index,
+                        n_tracks=n_total, sample_size=combined.sample_size,
+                    ))
+                    windows_per_track = np.bincount(padded.track_index, minlength=n_total)
         pending = []
-        if spectral and n_total > 0 and len(combined.base) > 0:
-            padded = pad_plan_to_bucket(WindowPlan(
-                base=combined.base, valid_lo=combined.valid_lo, valid_hi=combined.valid_hi,
-                track_index=combined.track_index, n_tracks=n_total,
-                sample_size=combined.sample_size,
-            ))
-            windows_per_track = np.bincount(padded.track_index, minlength=n_total)
+        if padded is not None:
             flat = frames_dev.reshape(-1)
             with timer.stage("infer"):
                 # queue every group before reading any result back; the
@@ -391,14 +404,17 @@ class BatchAnalyzer:
                     # band-passed tracks: their windows from their filtered
                     # samples, in each recording's own row of the batch
                     row0 = np.cumsum([0] + [len(p.base) for p in plans])
-                    flatf = float_pcm(flat)
-                    rec = flatf.reshape(b_count, t_bucket)
-                    grid = filter_windows(
-                        gather_windows(flatf, padded),
-                        [(rec[b], p, int(row0[b])) for b, p in enumerate(plans) if p.filter_specs],
-                        sr,
-                    )
-                    feats = features_for_config(grid, sr, cfg0, level=level)
+                    with span("infer.gather"):
+                        flatf = float_pcm(flat)
+                        rec = flatf.reshape(b_count, t_bucket)
+                        grid = filter_windows(
+                            gather_windows(flatf, padded),
+                            [(rec[b], p, int(row0[b])) for b, p in enumerate(plans)
+                             if p.filter_specs],
+                            sr,
+                        )
+                    with span("infer.frontend"):
+                        feats = features_for_config(grid, sr, cfg0, level=level)
                 for group in spectral:
                     cfg = group[0][1]
                     probs, feats = run_group(
@@ -419,7 +435,8 @@ class BatchAnalyzer:
                     if not pending:  # no spectral window in the batch
                         continue
                     cfg, probs = next(results)
-                    track_probs = probs.cpu().numpy()
+                    with span("infer.wait"):
+                        track_probs = probs.cpu().numpy()
                     for b in range(b_count):
                         lo, hi = track_offset[b], track_offset[b + 1]
                         apply_thresholds(all_tracks[b], track_probs[lo:hi],

@@ -6,6 +6,8 @@ import os
 import time
 from contextlib import contextmanager
 
+from audio_analysis_torch.utils.profiling import mark
+
 
 def env_flag(name):
     """Tri-state env flag: True/False when set, None when absent."""
@@ -45,7 +47,9 @@ def rss_mb() -> float:
 
 class StageTimer:
     """Per-stage wall-clock timing (decode/detect/infer/post),
-    surfaced alongside the reference's processing_time_seconds."""
+    surfaced alongside the reference's processing_time_seconds. Each stage
+    is also ``stage:<name>`` on a recording profiler's timeline
+    (``utils/profiling.py::mark``)."""
 
     def __init__(self):
         self.stages = {}
@@ -54,7 +58,8 @@ class StageTimer:
     def stage(self, name):
         t0 = time.perf_counter()
         try:
-            yield
+            with mark(f"stage:{name}"):
+                yield
         finally:
             self.stages[name] = self.stages.get(name, 0.0) + time.perf_counter() - t0
 

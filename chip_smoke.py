@@ -1692,8 +1692,8 @@ def check_upload(tmp, wav, model_dir, wavs, backlog, models, exact_path, fast_pa
     and the backlog's audio-s/s in each of the four settings, in turns, with
     the worker's wins over ten pairs a codec setting; a morepork member with a stale
     conversion raises without tensorflow, a current one loads; and a trace
-    of one exact CLI run (``utils/profiling.py::maybe_trace``) names the
-    detection kernels. Returns the measurements and the launches."""
+    of one exact CLI run (the CLI's own under AAT_TRACE_DIR) names the
+    detection kernels and the spans. Returns the measurements and the launches."""
     import torch
 
     from audio_analysis_torch.io import pcmcodec as pc
@@ -1701,7 +1701,6 @@ def check_upload(tmp, wav, model_dir, wavs, backlog, models, exact_path, fast_pa
     from audio_analysis_torch.native import load_pcmcodec_library
     from audio_analysis_torch.pipeline import morepork as mp
     from audio_analysis_torch.pipeline.serve import BatchAnalyzer
-    from audio_analysis_torch.utils.profiling import maybe_trace
     from audio_analysis_torch.utils.runtime import StageTimer
 
     t_phase = time.perf_counter()
@@ -1811,15 +1810,17 @@ def check_upload(tmp, wav, model_dir, wavs, backlog, models, exact_path, fast_pa
             else:
                 sys.modules[k] = v
 
-    # tracing: one exact CLI run under AAT_TRACE_DIR
+    # tracing: one exact CLI run under AAT_TRACE_DIR, which writes its trace
     with env(AAT_TRACE_DIR=str(tmp / "traces"), AAT_FAST=None):
-        with maybe_trace("exact_cli"):
-            run_cli(wav, model_dir, device)
-    trace = json.loads((tmp / "traces" / "exact_cli" / "trace.json").read_text())
+        run_cli(wav, model_dir, device)
+    trace = json.loads((tmp / "traces" / "analyse" / "trace.json").read_text())
     kernels = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"}
     for name in ("stft_mag_fft_kernel", "row_medians_kernel"):
         if not any(name in k for k in kernels):
             raise AssertionError(f"the trace names no {name}: {sorted(kernels)[:20]}")
+    names = {e.get("name") for e in trace["traceEvents"]}
+    if not {"span:detect.ccl", "span:infer.forward"} <= names:
+        raise AssertionError("the CLI's trace holds no span:detect.ccl or span:infer.forward")
     m["trace_kernels"] = len(kernels)
     m["phase_s"] = time.perf_counter() - t_phase
     return m, launches

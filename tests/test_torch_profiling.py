@@ -1,8 +1,9 @@
 """The port's tracing hooks (``audio_analysis_torch/utils/profiling.py``)
 beside the JAX package's: ``maybe_trace`` does nothing without
-AAT_TRACE_DIR and writes a torch.profiler trace under the label with it;
-``annotate`` keeps the function's name and return value and names a
-profiler region."""
+AAT_TRACE_DIR and writes a torch.profiler trace under the label with it,
+holding the spans opened inside; the JAX package's ``annotate`` keeps the
+function's name and return value (the port marks regions with ``span``,
+tests/test_torch_spans.py)."""
 
 import json
 
@@ -26,22 +27,21 @@ def test_maybe_trace_is_a_no_op_without_the_variable(tmp_path, monkeypatch, hook
 
 def test_maybe_trace_writes_a_trace_under_the_label(tmp_path, monkeypatch):
     """On the CPU the trace holds the CPU operators run inside it, and the
-    annotate region's name."""
+    span's name and args."""
     monkeypatch.setenv("AAT_TRACE_DIR", str(tmp_path))
 
-    @profiling.annotate("aat_region")
-    def work(x):
-        return torch.matmul(x, x).sum()
-
     with profiling.maybe_trace("analysis"):
-        work(torch.ones(8, 8))
+        with profiling.span_args(batch=3), profiling.span("aat_region"):
+            torch.matmul(torch.ones(8, 8), torch.ones(8, 8)).sum()
     files = list((tmp_path / "analysis").iterdir())
     assert [f.name for f in files] == ["trace.json"]
-    names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
-    assert "aat_region" in names and "aten::matmul" in names
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert "aten::matmul" in {e.get("name") for e in events}
+    (region,) = [e for e in events if e.get("name") == "span:aat_region"]
+    assert region["args"]["batch"] == 3
 
 
-@pytest.mark.parametrize("hooks", [profiling, jprofiling], ids=["port", "jax"])
+@pytest.mark.parametrize("hooks", [jprofiling], ids=["jax"])
 def test_annotate_keeps_name_and_return_value(hooks):
     @hooks.annotate("region")
     def scaled(x, k=2):
