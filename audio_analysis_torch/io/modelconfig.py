@@ -61,6 +61,17 @@ class ModelConfig:
     filter_below: float = None
     pad_short_tracks: bool = False
     magv2: bool = True
+    # the Audio Spectrogram Transformer's ("architecture": "ast") widths,
+    # ViT-B/16 by default, and its input normalisation (AudioSet's, for
+    # Kaldi fbank features)
+    net_dim: int = 768
+    net_depth: int = 12
+    net_heads: int = 12
+    net_mlp: int = 3072
+    net_patch: int = 16
+    net_patch_stride: int = 10
+    norm_mean: float = -4.2677
+    norm_std: float = 4.5690
     raw: dict = field(default_factory=dict)
 
     @classmethod
@@ -97,6 +108,14 @@ class ModelConfig:
             filter_below=meta.get("filter_below", None),
             pad_short_tracks=meta.get("pad_short_tracks", False),
             magv2=meta.get("magv2", True),
+            net_dim=meta.get("net_dim", 768),
+            net_depth=meta.get("net_depth", 12),
+            net_heads=meta.get("net_heads", 12),
+            net_mlp=meta.get("net_mlp", 3072),
+            net_patch=meta.get("net_patch", 16),
+            net_patch_stride=meta.get("net_patch_stride", 10),
+            norm_mean=meta.get("norm_mean", -4.2677),
+            norm_std=meta.get("norm_std", 4.5690),
             raw=dict(meta),
         )
 

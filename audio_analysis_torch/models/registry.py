@@ -4,6 +4,11 @@ package's models/registry.py).
 - a native checkpoint dir (metadata.txt with ``"architecture": "tuinet"``,
   or any dir with weights.npz): TuiNet;
 - ``"architecture": "dense"``: a dense stack over flat vectors;
+- ``"architecture": "ast"``: the Audio Spectrogram Transformer
+  (``models/ast.py``) from a native checkpoint, its widths from the
+  metadata (``io/modelconfig.py``), its token grid from ``n_mels`` and the
+  window's frames;
+- any other ``"architecture"`` value: a ``ValueError`` naming the known ones;
 - a ``.keras`` archive (or a dir containing one): imported without
   TensorFlow or h5py into the ``KerasModel`` executor, in the compute dtype
   ``_resolved_compute_dtype`` picks.
@@ -19,12 +24,15 @@ from torch import nn
 
 from audio_analysis_torch.io.checkpoint import load_checkpoint_params
 from audio_analysis_torch.io.modelconfig import ModelConfig
+from audio_analysis_torch.models.ast import AST, ASTConfig
 from audio_analysis_torch.models.birdnet import TuiNet, TuiNetConfig
 from audio_analysis_torch.models.keras_graph import KerasModel
 from audio_analysis_torch.utils.profiling import span
 from audio_analysis_torch.utils.runtime import env_flag, fast_mode
 
 _MODEL_CACHE = {}
+ARCHITECTURES = ("tuinet", "dense", "ast")
+SR = 48000  # the rate every recording is analysed at (io/audio.py::load_recording)
 
 _ACTIVATIONS = {
     "softmax": lambda z: torch.softmax(z, dim=-1),
@@ -102,6 +110,21 @@ def _load_uncached(model_path: Path, cfg: ModelConfig) -> nn.Module:
     raw = cfg.raw or {}
     arch = raw.get("architecture")
     activation = raw.get("output_activation", "softmax")
+    if arch is not None and arch not in ARCHITECTURES:
+        raise ValueError(f"unknown architecture {arch!r} in {model_path}: "
+                         f"known are {', '.join(ARCHITECTURES)}")
+    if arch == "ast":
+        net_cfg = ASTConfig(
+            num_classes=len(cfg.labels) or int(raw.get("num_classes", 8)),
+            n_mels=int(cfg.n_mels),
+            frames=1 + int(cfg.segment_length * SR) // int(cfg.hop_length),
+            dim=int(cfg.net_dim), depth=int(cfg.net_depth), heads=int(cfg.net_heads),
+            mlp=int(cfg.net_mlp), patch=int(cfg.net_patch), stride=int(cfg.net_patch_stride),
+            norm_mean=float(cfg.norm_mean), norm_std=float(cfg.norm_std),
+            dtype=raw.get("net_dtype", "bfloat16"),
+        )
+        net = AST.from_params(load_checkpoint_params(model_path), net_cfg)
+        return _WithActivation(net, activation)
     if arch == "dense":
         net = DenseStack(load_checkpoint_params(model_path), raw.get("net_pool"))
         return _WithActivation(net, activation)
