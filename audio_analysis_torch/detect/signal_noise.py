@@ -156,7 +156,7 @@ def detect_batch_mask(frames, n_valid, *, sr, hop_length=281, n_fft=4096, level=
     |STFT| and the medians are exact at every level."""
     with span("detect.endscan"):
         framesf = _to_float(frames)
-        n_valid = torch.as_tensor(n_valid, device=framesf.device).to(torch.int64)
+        n_valid = to_device_async(torch.as_tensor(np.asarray(n_valid, np.int64)), framesf.device)
         mx, mn = _batch_chunk_flatness(framesf, sr=sr, hop_length=hop_length, level=level)
         found, flat_sec, mask_valid = _endscan_decision(
             n_valid, mx, mn, sr=sr, hop_length=hop_length
@@ -212,8 +212,7 @@ def detect_batch_dispatch(frames, n_valid, sr, hop_length=281, n_fft=4096, level
     with span("detect.enqueue"):
         n_valid = np.asarray(n_valid, dtype=np.int64).reshape(-1)
         found, flat_sec, words = detect_batch_mask(
-            frames, to_device_async(torch.from_numpy(n_valid), frames.device), sr=sr,
-            hop_length=hop_length, n_fft=n_fft, level=level,
+            frames, n_valid, sr=sr, hop_length=hop_length, n_fft=n_fft, level=level,
         )
         width = stft_frames(frames.shape[-1], n_fft, hop_length)
         packed = words_to_bytes(words, width)

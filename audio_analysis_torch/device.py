@@ -10,9 +10,11 @@ CLAUDE.md, "Mag exact1-vs-exact2 MEASURED OUT"), and TF32 keeps only about
 three decimal digits, so every float32 product here stays full float32.
 
 ``to_device_async`` and ``to_host_async`` copy between the host and the card
-without waiting for the card's queue, through pinned host memory.
+without waiting for the card's queue, through pinned host memory;
+``device_consts`` keeps host-built constants on a device once.
 """
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -52,3 +54,19 @@ def to_host_async(x: torch.Tensor) -> torch.Tensor:
         return x
     out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
     return out.copy_(x, non_blocking=True)
+
+
+_DEVICE_CONSTS = {}
+
+
+def device_consts(key, build, device, dtype=None):
+    """Host-built constants (``build()``: a sequence of numpy arrays),
+    uploaded once per device and `key` (converted to `dtype` on the host
+    first, when given)."""
+    k = (key, str(device))
+    got = _DEVICE_CONSTS.get(k)
+    if got is None:
+        got = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(device)
+                    for a in build())
+        _DEVICE_CONSTS[k] = got
+    return got

@@ -11,6 +11,8 @@ in float32 on the tensor's device (``torch.fft.rfft``).
 import numpy as np
 import torch
 
+from audio_analysis_torch.device import device_consts
+
 
 def dct2(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Unnormalised DCT-II along `dim` (scipy.fftpack.dct type=2, norm=None)."""
@@ -19,7 +21,10 @@ def dct2(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     # even extension: the rfft of [x, reversed(x)] is the 2N-point spectrum
     # whose phase-shifted real part is the DCT-II
     spec = torch.fft.rfft(torch.cat([x, x.flip(-1)], dim=-1), dim=-1)[..., :n]
-    theta = np.pi * np.arange(n) / (2.0 * n)
-    cos = torch.from_numpy(np.cos(theta).astype(np.float32)).to(x.device)
-    sin = torch.from_numpy(np.sin(theta).astype(np.float32)).to(x.device)
+
+    def build():
+        theta = np.pi * np.arange(n) / (2.0 * n)
+        return np.cos(theta).astype(np.float32), np.sin(theta).astype(np.float32)
+
+    cos, sin = device_consts(("dct2", n), build, x.device)
     return (spec.real * cos + spec.imag * sin).movedim(-1, dim)

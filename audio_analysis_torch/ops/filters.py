@@ -32,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from audio_analysis_torch.device import to_device_async
+
 
 # ---------------------------------------------------------------------------
 # Host-side Butterworth design (float64 numpy; no scipy dependency)
@@ -169,7 +171,7 @@ def _section_scan(x: torch.Tensor, c: np.ndarray) -> torch.Tensor:
         host += [m[:, i, j] for i in (0, 1) for j in (0, 1)]
         a = a @ a
         d *= 2
-    coef = torch.from_numpy(np.stack(host).astype(np.float32)).to(x.device)
+    coef = to_device_async(torch.from_numpy(np.stack(host).astype(np.float32)), x.device)
     col = lambda i: coef[i].reshape(shape)
 
     u1, u2 = col(1) * x, col(2) * x  # v after 0 steps: g x[n]

@@ -52,6 +52,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from audio_analysis_torch.device import device_consts
 from audio_analysis_torch.ops import cuda
 from audio_analysis_torch.ops.mel import filterbank_np, mel_support_bins
 from audio_analysis_torch.ops.stft import stft_magnitude
@@ -270,21 +271,6 @@ def stft_plan(n_fft: int, bins: int, *, mel: bool, cap: int = SMEM_OPTIN_H100):
     raise ValueError(f"n_fft {n_fft}: no DFT route fits in {cap} bytes of shared memory")
 
 
-_DEVICE_CONSTS = {}
-
-
-def _device_consts(key, build, device, dtype=None):
-    """Host-built constants, uploaded once per device (converted to `dtype`
-    on the host first, when given)."""
-    k = (key, str(device))
-    got = _DEVICE_CONSTS.get(k)
-    if got is None:
-        got = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(device)
-                    for a in build())
-        _DEVICE_CONSTS[k] = got
-    return got
-
-
 def cluster_twiddles_np(n_fft: int, c: int, points: int):
     """(xc, xs [(c - 1) m]) float64: the cluster route's exchange twiddles
     by buffer address q, cos/sin(2 pi k p(q) / points) at (k - 1) m + q for
@@ -332,7 +318,7 @@ def _dft_consts(n_fft, route, device, split=None):
             return head + bluestein_np(n_fft)
         return head
 
-    return _device_consts(("dft", n_fft, route, split), build, device)
+    return device_consts(("dft", n_fft, route, split), build, device)
 
 
 def _launch_dft(fn, kind, route, lib, head, consts, tail, split=None):
@@ -370,7 +356,7 @@ def _mel_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk, device):
         hi = np.where(any_nz, bu - nz[:, ::-1].argmax(axis=1), 0).astype(np.int32)
         return fb, lo, hi
 
-    return _device_consts(("mel", sr, n_mels, fmin, fmax, n_fft, break_freq, htk), build, device)
+    return device_consts(("mel", sr, n_mels, fmin, fmax, n_fft, break_freq, htk), build, device)
 
 
 def stft_frames(n_samples, n_fft, hop_length):
@@ -556,7 +542,7 @@ def _bf16_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk, device):
         return wr, wi, melt
 
     key = ("bf16", sr, n_mels, fmin, fmax, n_fft, break_freq, htk)
-    wr, wi, melt = _device_consts(key, build, device, dtype=torch.bfloat16)
+    wr, wi, melt = device_consts(key, build, device, dtype=torch.bfloat16)
     return wr, wi, melt, bu
 
 
@@ -736,8 +722,8 @@ def _dif_consts(sr, n_mels, fmin, fmax, n_fft, break_freq, htk, device):
         return ct, st, melt
 
     key = ("dif", sr, n_mels, fmin, fmax, n_fft, break_freq, htk)
-    win, twc, tws = _device_consts(key + ("f32",), build_f32, device)
-    ct, st, melt = _device_consts(key + ("bf16",), build_bf16, device, dtype=torch.bfloat16)
+    win, twc, tws = device_consts(key + ("f32",), build_f32, device)
+    ct, st, melt = device_consts(key + ("bf16",), build_bf16, device, dtype=torch.bfloat16)
     return win, twc, tws, ct, st, melt, levels, nb, bl
 
 

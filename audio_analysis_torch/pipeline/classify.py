@@ -36,7 +36,7 @@ from audio_analysis_torch.detect.signal import (
     get_tracks_from_signals,
 )
 from audio_analysis_torch.detect.signal_noise import detect
-from audio_analysis_torch.device import resolve_device
+from audio_analysis_torch.device import resolve_device, to_device_async
 from audio_analysis_torch.io.audio import load_recording
 from audio_analysis_torch.io.modelconfig import ModelConfig
 from audio_analysis_torch.io.pcmcodec import upload_pcm, wire_codec_enabled
@@ -146,8 +146,8 @@ def filter_windows(grid, recordings, sr):
     filtered = sosfilt_array(sos_arr, stack)
 
     dev = grid.device
-    as_t = lambda parts: torch.from_numpy(np.concatenate(parts).astype(np.int64)).to(dev)
-    rows, bases, lo, hi, which = (as_t(a) for a in (rows, bases, vlo, vhi, which))
+    rows, bases, lo, hi, which = to_device_async(torch.from_numpy(np.stack(
+        [np.concatenate(a).astype(np.int64) for a in (rows, bases, vlo, vhi, which)])), dev)
     j = torch.arange(grid.shape[-1], device=dev)
     idx = (bases[:, None] + j[None, :]).clamp_(0, max_len - 1)
     win = filtered[which[:, None], idx]
@@ -161,7 +161,8 @@ def _track_means(per_window_probs, track_index, n_tracks):
     """Mean over each track's windows (reference: np.mean(predictions,
     axis=0) per track, :551). Windows indexed n_tracks (the bucket padding)
     are summed apart and dropped, so their values never reach a track."""
-    seg = torch.as_tensor(np.asarray(track_index, np.int64), device=per_window_probs.device)
+    seg = to_device_async(torch.from_numpy(np.asarray(track_index, np.int64)),
+                          per_window_probs.device)
     sums = torch.zeros(
         (n_tracks + 1, per_window_probs.shape[1]), dtype=per_window_probs.dtype,
         device=per_window_probs.device,

@@ -14,6 +14,7 @@ import os
 
 import torch
 
+from audio_analysis_torch.device import device_consts
 from audio_analysis_torch.models.layers import resize_with_pad
 from audio_analysis_torch.ops.dct import dct2
 from audio_analysis_torch.ops.mel import filterbank_np
@@ -136,8 +137,10 @@ def _mfcc(windows, sr, hop_length, n_mfcc=20, n_mels=80):
     floor per window -> ortho DCT-II over the mel axis, the first 20
     coefficients: [N, 20, frames]."""
     mag = stft_magnitude(windows, 2048, hop_length)
-    fb = torch.from_numpy(filterbank_np(sr, n_mels, 50.0, 11000.0, 2048, 700.0, True))
-    mel = torch.einsum("mf,nft->nmt", fb.to(windows.device), mag * mag)
+    (fb,) = device_consts(("mfcc_mel", sr, n_mels),
+                          lambda: [filterbank_np(sr, n_mels, 50.0, 11000.0, 2048, 700.0, True)],
+                          windows.device)
+    mel = torch.einsum("mf,nft->nmt", fb, mag * mag)
     log_spec = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
     peak = log_spec.amax(dim=(-2, -1), keepdim=True)
     log_spec = torch.maximum(log_spec, peak - 80.0)

@@ -15,6 +15,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from audio_analysis_torch.device import to_device_async
+
 
 @dataclass
 class WindowPlan:
@@ -173,9 +175,12 @@ def gather_windows(frames: torch.Tensor, plan: WindowPlan) -> torch.Tensor:
     dev = frames.device
     padded = torch.nn.functional.pad(frames, (sample, sample))
     j = torch.arange(sample, device=dev)
-    base = torch.from_numpy(plan.base.astype(np.int64)).to(dev)
-    lo = torch.from_numpy(plan.valid_lo.astype(np.int64)).to(dev)
-    hi = torch.from_numpy(plan.valid_hi.astype(np.int64)).to(dev)
+    # the plan's three arrays in one queued copy (a pageable one would wait
+    # for the device's queue to drain)
+    base, lo, hi = to_device_async(
+        torch.from_numpy(np.stack([plan.base, plan.valid_lo, plan.valid_hi]).astype(np.int64)),
+        dev,
+    )
     # the valid range already keeps indices inside the padded signal; clamp
     # so the masked-out indices stay in bounds too
     idx = (base[:, None] + sample + j[None, :]).clamp_(0, padded.shape[0] - 1)

@@ -8,23 +8,29 @@ recordings at a time:
    (end-scan, |STFT|, medians, masks packed to bits and copied back to
    pinned memory: ``detect_batch_dispatch``); nothing here waits for the
    device;
-2. host: wait for the packed masks, the CCL of each recording in a host
-   thread, track merging, and one combined window plan over the flattened
-   [B*T] PCM with the track ids renumbered across the batch;
-3. per model group, one pass over the whole batch's window grid: gather,
-   frontend, models, ensemble mean, per-track means (``run_group``); the
-   windows of band-passed tracks (models whose metadata sets
+2. host (``_queue``): wait for the packed masks, the CCL of each
+   recording in a host thread, track merging, and one combined window plan
+   over the flattened [B*T] PCM with the track ids renumbered across the
+   batch;
+3. queued by ``_queue``, per model group, one pass over the whole batch's
+   window grid: gather, frontend, models, ensemble mean, per-track means
+   (``run_group``), and the per-track means' copy to pinned host memory;
+   the windows of band-passed tracks (models whose metadata sets
    ``filter_freq`` or ``filter_below``) are gathered again from their
    filtered samples before the frontend (``classify.filter_windows``, one
-   filter call for the batch), from the plans the finish step drew;
-4. host: thresholds, eBird filter, master tags, chirps and cacophony index
-   per recording.
+   filter call for the batch), from the plans the queue step drew; every
+   host array on the way goes to the device through pinned memory,
+   queued, so nothing here waits for the device's queue to drain;
+4. host (``_collect``): wait for the copied means, then thresholds, eBird
+   filter, master tags, chirps and cacophony index per recording.
 
 The frontend level (``frontend_level``: AAT_FAST / AAT_PALLAS) is resolved
 once per batch, at dispatch, and holds for its end-scan and its classify
-frontend. ``analyse_stream`` dispatches batch k+1 before it finishes
-batch k, so the device runs the next batch's detection while the host
-labels and plans the current one.
+frontend. ``_finish`` is ``_queue`` then ``_collect``. ``analyse_stream``
+keeps two batches in flight ahead of the one it collects: at step k it
+dispatches batch k+1, queues batch k's classify and collects batch k-1,
+so the host stacks, labels and plans while the device runs the classify
+queued a step before.
 
 The JAX package band-passes a batch with filtered tracks one recording at
 a time (its ``_infer_with_filters``); windows are independent, so the one
@@ -72,7 +78,7 @@ import torch
 
 from audio_analysis_torch.detect.signal import MAX_FREQUENCY, Signal, get_tracks_from_signals
 from audio_analysis_torch.detect.signal_noise import detect_batch_dispatch, detect_batch_finish
-from audio_analysis_torch.device import resolve_device, to_device_async
+from audio_analysis_torch.device import resolve_device, to_device_async, to_host_async
 from audio_analysis_torch.io.modelconfig import NON_BIRD, ModelConfig
 from audio_analysis_torch.io.pcmcodec import (
     BLOCK,
@@ -101,7 +107,7 @@ from audio_analysis_torch.pipeline.ebird import filter_by_location
 from audio_analysis_torch.pipeline.embeddings import load_embedder
 from audio_analysis_torch.pipeline.frontend import frontend_level
 from audio_analysis_torch.pipeline.samples import WindowPlan, gather_windows, pad_plan_to_bucket
-from audio_analysis_torch.utils.profiling import span, span_args
+from audio_analysis_torch.utils.profiling import recording, span, span_args
 from audio_analysis_torch.utils.runtime import StageTimer, timings_on
 
 
@@ -193,9 +199,15 @@ class BatchAnalyzer:
 
     def analyse_stream(self, batches, sr=None, meta_batches=None, analyse_tracks=False,
                        timer=None):
-        """Pipelined serving: yields one result list per batch, dispatching
-        batch k+1 before finishing batch k (the device runs batch k+1's
-        detection while the host labels and plans batch k).
+        """Pipelined serving: yields one result list per batch, in batch
+        order. At step k the stream dispatches batch k+1 (stacks it and
+        queues its detection), queues batch k's classify (``_queue``: its
+        masks were queued before batch k-1's classify, so they are back)
+        and then collects batch k-1 (``_collect``: readback, thresholds,
+        post) and yields it. The device runs classify k-1, detection k+1,
+        classify k in that order, and the host stacks, labels and plans
+        the next batches while classify k-1 runs; no host-device wait lies
+        between queueing a batch's classify and reading it back.
 
         `meta_batches`: optional iterable zipped with `batches`, each item a
         list of per-recording sidecar dicts (see analyse_recordings).
@@ -203,25 +215,50 @@ class BatchAnalyzer:
 
         Batches are prepared and dispatched on this thread: the JAX
         package's AAT_ASYNC_UPLOAD and AAT_ENCODE_AHEAD worker threads are
-        not ported (ROADMAP Queue 3), and both variables are ignored. Under
-        a recording profiler every mark of batch k (its stages and spans)
-        carries ``batch=k`` (``utils/profiling.py::span_args``)."""
+        not ported (ROADMAP Queue 3), and both variables are ignored. An
+        exception raised while a batch is pulled, dispatched or queued
+        reaches the caller after the results of every batch queued before
+        it; the batch dispatched but not yet queued is lost with it.
+        Under a recording profiler every mark of batch k (its stages and
+        spans) carries ``batch=k`` (``utils/profiling.py::span_args``)."""
         timer = timer or StageTimer()
         metas = iter(meta_batches) if meta_batches is not None else None
-        prev = None
-        for k, batch in enumerate(batches):
-            md = next(metas) if metas is not None else None
-            with span_args(batch=k), timer.stage("dispatch"):
-                handle = self._dispatch(batch, sr, md, analyse_tracks)
-            if prev is not None:
-                with span_args(batch=k - 1):
-                    results = self._finish(prev, timer=timer)
-                yield results
-            prev = handle
-        if prev is not None:
+
+        def queue(k, handle):
             with span_args(batch=k):
-                results = self._finish(prev, timer=timer)
-            yield results
+                return k, self._queue(handle, timer)
+
+        def collect(k, handle):
+            with span_args(batch=k):
+                return self._collect(handle, timer)
+
+        pulled = enumerate(batches)
+        queued = []  # (k, ``_queue``'s handle) not yet collected, oldest first
+        dispatched = None  # (k, ``_dispatch``'s handle) not yet queued
+        while True:
+            try:
+                step = next(pulled, None)
+                if step is None:
+                    if dispatched is not None:
+                        queued.append(queue(*dispatched))
+                    break
+                k, batch = step
+                md = next(metas) if metas is not None else None
+                with span_args(batch=k), timer.stage("dispatch"):
+                    handle = self._dispatch(batch, sr, md, analyse_tracks)
+                if dispatched is not None:
+                    queued.append(queue(*dispatched))
+                dispatched = (k, handle)
+            except Exception:
+                # the batches queued before the failure are still collected
+                # and yielded, in order, before it reaches the caller
+                for entry in queued:
+                    yield collect(*entry)
+                raise
+            if len(queued) == 2:
+                yield collect(*queued.pop(0))
+        for entry in queued:
+            yield collect(*entry)
 
     # -- two-phase internals --------------------------------------------------
 
@@ -321,21 +358,25 @@ class BatchAnalyzer:
         return (detect_handle, frames_dev, n_valid, t_bucket, len(n_valid), sr, level, meta_data,
                 analyse_tracks)
 
-    @torch.inference_mode()
     def _finish(self, handle, timer=None, timed=False):
-        """The batch's results (over a mesh, the global list). `timed`: each
-        result carries its own rank's stage times under "timing", attached
-        before the gather."""
+        """The batch's results (over a mesh, the global list): ``_queue``
+        followed at once by ``_collect``. `timed`: each result carries its
+        own rank's stage times under "timing", attached before the
+        gather."""
         timer = timer or StageTimer()
-        results = self._finish_local(handle, timer)
-        if timed:
-            for r in results:
-                r["timing"] = timer.as_dict()
-        return self._gather(results, timer) if self._multihost else results
+        return self._collect(self._queue(handle, timer), timer, timed=timed)
 
-    def _finish_local(self, handle, timer):
+    @torch.inference_mode()
+    def _queue(self, handle, timer):
+        """The first half of finishing a batch: wait for its packed masks,
+        label and plan on the host, and queue every spectral group's
+        gather, frontend, models, ensemble mean and per-track means, and the
+        copy of each group's track probabilities to pinned host memory. No
+        other wait for the device: the host copies on the way are pinned and
+        queued, so work queued before the batch's classify keeps the device
+        busy while this runs. Returns the handle ``_collect`` reads."""
         if handle is None:
-            return []
+            return None
         (detect_handle, frames_dev, n_valid, t_bucket, b_count, sr, level, meta_data,
          analyse_tracks) = handle
         rng = self.rng
@@ -379,7 +420,7 @@ class BatchAnalyzer:
 
         track_offset = np.cumsum([0] + [len(t) for t in all_tracks])
         n_total = int(track_offset[-1])
-        padded = None
+        padded = windows_per_track = None
         if spectral and n_total > 0:
             with timer.stage("plan"):
                 combined = self._combine_plans(plans, t_bucket)
@@ -421,30 +462,57 @@ class BatchAnalyzer:
                         [m for m, _ in group], cfg0, flat, padded, n_total,
                         cfg.is_efficientnet, sr=sr, level=level, feats=feats,
                     )
-                    pending.append((cfg, probs))
-        if n_total > 0:
-            # results are consumed in the listed group order, embeddings
-            # groups at their place: each track's results keep the single
-            # path's order, which the master tag reads
-            results = iter(pending)
-            with timer.stage("infer"):
-                for group in self.groups:
-                    if _is_embeddings(group):
-                        self._infer_embeddings(group, frames_dev, n_valid, sr, all_tracks)
-                        continue
-                    if not pending:  # no spectral window in the batch
-                        continue
-                    cfg, probs = next(results)
-                    with span("infer.wait"):
-                        track_probs = probs.cpu().numpy()
-                    for b in range(b_count):
-                        lo, hi = track_offset[b], track_offset[b + 1]
-                        apply_thresholds(all_tracks[b], track_probs[lo:hi],
-                                         windows_per_track[lo:hi], cfg)
+                    # the probabilities' copy back is queued behind them
+                    pending.append((cfg, to_host_async(probs)))
+        done = None
+        if pending and frames_dev.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(frames_dev.device))
+        return (per_rec_tracks, all_tracks, track_offset, windows_per_track, pending, done,
+                frames_dev, n_valid, sr, meta_data, analyse_tracks)
 
-        with timer.stage("post"):
-            return self._post(per_rec_tracks, n_valid, sr, meta_data=meta_data,
-                              analyse_tracks=analyse_tracks)
+    @torch.inference_mode()
+    def _collect(self, queued, timer, timed=False):
+        """The second half: wait for the queued probabilities
+        (``infer.wait``; under a recording profiler its arg ``ready`` is 1
+        when they were already back, the device ahead of the host, else 0),
+        apply each group's thresholds in the listed order (an embeddings
+        group runs at its place), then post; over a mesh the gather."""
+        results = []
+        if queued is not None:
+            (per_rec_tracks, all_tracks, track_offset, windows_per_track, pending, done,
+             frames_dev, n_valid, sr, meta_data, analyse_tracks) = queued
+            if track_offset[-1] > 0:
+                # results are consumed in the listed group order, embeddings
+                # groups at their place: each track's results keep the single
+                # path's order, which the master tag reads
+                probs = iter(pending)
+                with timer.stage("infer"):
+                    if pending:
+                        ready = ({"ready": int(done.query())}
+                                 if done is not None and recording() else {})
+                        with span("infer.wait", **ready):
+                            if done is not None:
+                                done.synchronize()
+                    for group in self.groups:
+                        if _is_embeddings(group):
+                            self._infer_embeddings(group, frames_dev, n_valid, sr, all_tracks)
+                            continue
+                        if not pending:  # no spectral window in the batch
+                            continue
+                        cfg, track_probs = next(probs)
+                        track_probs = track_probs.numpy()
+                        for b in range(len(all_tracks)):
+                            lo, hi = track_offset[b], track_offset[b + 1]
+                            apply_thresholds(all_tracks[b], track_probs[lo:hi],
+                                             windows_per_track[lo:hi], cfg)
+            with timer.stage("post"):
+                results = self._post(per_rec_tracks, n_valid, sr, meta_data=meta_data,
+                                     analyse_tracks=analyse_tracks)
+        if timed:
+            for r in results:
+                r["timing"] = timer.as_dict()
+        return self._gather(results, timer) if self._multihost else results
 
     def _post(self, per_rec_tracks, n_valid, sr, meta_data=None, analyse_tracks=False):
         """Host post-processing per recording (pipeline/analysis.py's

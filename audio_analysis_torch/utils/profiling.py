@@ -24,32 +24,39 @@ import torch
 _ARGS = contextvars.ContextVar("aat_span_args", default=None)
 
 
+def recording():
+    """Whether a profiler records on this thread: the one check a mark costs
+    when none does, and the guard for an arg that costs more to compute."""
+    return torch._C._autograd._profiler_enabled()
+
+
 @contextlib.contextmanager
-def mark(label):
+def mark(label, **args):
     """``label`` on the profiler's timeline while a profiler records on this
-    thread, with the args of the enclosing ``span_args`` as the record's
-    keyword inputs; otherwise nothing but the check. (``record_function``'s
-    string args never reach the trace: ``_RecordFunctionFast`` keeps
-    keyword inputs when the profiler records shapes, as ``maybe_trace``'s
-    does, and costs less under a profiler.)"""
-    if not torch._C._autograd._profiler_enabled():
+    thread, with ``args`` over those of the enclosing ``span_args`` as the
+    record's keyword inputs; otherwise nothing but the check.
+    (``record_function``'s string args never reach the trace:
+    ``_RecordFunctionFast`` keeps keyword inputs when the profiler records
+    shapes, as ``maybe_trace``'s does, and costs less under a profiler.)"""
+    if not recording():
         yield
         return
-    args = _ARGS.get()
-    with torch._C._profiler._RecordFunctionFast(label, (), args or {}):
+    args = {**(_ARGS.get() or {}), **args}
+    with torch._C._profiler._RecordFunctionFast(label, (), args):
         yield
 
 
-def span(name):
-    """A region of the program, ``span:<name>`` on the timeline."""
-    return mark(f"span:{name}")
+def span(name, **args):
+    """A region of the program, ``span:<name>`` on the timeline, with
+    ``args`` (see ``mark``)."""
+    return mark(f"span:{name}", **args)
 
 
 @contextlib.contextmanager
 def span_args(**args):
     """Every mark opened inside carries ``args`` (over an enclosing
-    ``span_args``'s): batch serving's stream sets ``batch=k``, since batch
-    k+1's dispatch interleaves with batch k's finish on one thread."""
+    ``span_args``'s): batch serving's stream sets ``batch=k``, since three
+    batches' dispatch, queue and collect interleave on one thread."""
     token = _ARGS.set({**(_ARGS.get() or {}), **args})
     try:
         yield
@@ -66,7 +73,7 @@ def maybe_trace(label="analysis"):
     inside a profiler that already records (which keeps the spans), a
     no-op."""
     trace_dir = os.environ.get("AAT_TRACE_DIR")
-    if not trace_dir or torch._C._autograd._profiler_enabled():
+    if not trace_dir or recording():
         yield
         return
     from torch.profiler import ProfilerActivity, profile
