@@ -19,13 +19,13 @@ For each recording of a [B, T] batch, on the device:
    invalid region (frames past the data end) set to each operation's
    identity between stages, as OpenCV sees the truncated recording.
 
-The words' bytes are put in np.packbits' order on the device and go to the
-host once, where the native CCL labels them. ``detect_batch_dispatch``
-queues all of that for a batch, the copies included, without waiting for
-the device: on a CUDA device the copies go through pinned host memory,
-asynchronously, and an event marks their end. ``detect_batch_finish``
-waits for that event only, so work queued after the dispatch (the next
-batch) does not hold it, and labels each recording in a host thread.
+The words go to the host once, as they are, where the native CCL labels
+them. ``detect_batch_dispatch`` queues all of that for a batch, the copies
+included, without waiting for the device: on a CUDA device the copies go
+through pinned host memory, asynchronously, and an event marks their end.
+``detect_batch_finish`` waits for that event only, so work queued after
+the dispatch (the next batch) does not hold it, and labels each recording
+in a host thread.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -178,45 +178,30 @@ def detect_batch_mask(frames, n_valid, *, sr, hop_length=281, n_fft=4096, level=
     return found, flat_sec, mask
 
 
-def pack_bits(mask: torch.Tensor) -> torch.Tensor:
-    """[..., C] bool -> [..., ceil(C/8)] uint8, most significant bit first
-    (np.packbits' layout, which the native CCL reads)."""
-    c = mask.shape[-1]
-    w = -(-c // 8)
-    m = F.pad(mask.to(torch.uint8), (0, 8 * w - c)).reshape(mask.shape[:-1] + (w, 8))
-    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=mask.device)
-    return (m << shifts).sum(dim=-1, dtype=torch.uint8)
-
-
 def pack_words(mask: torch.Tensor) -> torch.Tensor:
     """[..., C] bool -> [..., ceil(C/32)] int32 words, bit 31 of word j the
-    column 32 j (the JAX package's ``_pack_bits``): np.packbits' bytes, each
-    four reversed (the words are little-endian in memory)."""
-    b = pack_bits(mask)
-    b = F.pad(b, (0, -b.shape[-1] % 4))
-    return b.reshape(b.shape[:-1] + (-1, 4)).flip(-1).contiguous().view(torch.int32).squeeze(-1)
-
-
-def words_to_bytes(words: torch.Tensor, width: int) -> torch.Tensor:
-    """Inverse of ``pack_words``: [..., W] int32 words -> the first
-    ceil(width/8) bytes of each row, in np.packbits' order."""
-    b = words.contiguous().view(torch.uint8).reshape(words.shape + (4,)).flip(-1)
-    return b.reshape(words.shape[:-1] + (-1,))[..., : -(-width // 8)]
+    column 32 j (the JAX package's packed mask), the pad bits zero. The
+    bits are disjoint, so their sum is their OR (bit 31 wraps to the sign);
+    the bool mask times each bit's weight makes the one int32 intermediate."""
+    c = mask.shape[-1]
+    n = -(-c // 32)
+    bits = F.pad(mask, (0, 32 * n - c)).reshape(mask.shape[:-1] + (n, 32))
+    weights = 1 << torch.arange(31, -1, -1, dtype=torch.int32, device=mask.device)
+    return (bits * weights).sum(dim=-1, dtype=torch.int32)
 
 
 def detect_batch_dispatch(frames, n_valid, sr, hop_length=281, n_fft=4096, level=None):
     """Queue detection for a [B, T] batch of int16 or float PCM on the
     device (``n_valid`` [B] valid samples per recording): the end-scan, the
-    masks, their packing to bits and the copy of the packed masks to the
-    host. Returns a handle without waiting for the device."""
+    masks as words and the words' copy to the host. Returns a handle
+    without waiting for the device."""
     with span("detect.enqueue"):
         n_valid = np.asarray(n_valid, dtype=np.int64).reshape(-1)
         found, flat_sec, words = detect_batch_mask(
             frames, n_valid, sr=sr, hop_length=hop_length, n_fft=n_fft, level=level,
         )
         width = stft_frames(frames.shape[-1], n_fft, hop_length)
-        packed = words_to_bytes(words, width)
-        host = [to_host_async(x) for x in (found, flat_sec, packed)]
+        host = [to_host_async(x) for x in (found, flat_sec, words)]
         copied = None
         if frames.device.type == "cuda":
             copied = torch.cuda.Event()
@@ -226,17 +211,17 @@ def detect_batch_dispatch(frames, n_valid, sr, hop_length=281, n_fft=4096, level
 
 def detect_batch_finish(handle):
     """[(length_seconds, signals), ...] for a dispatched batch: wait for its
-    copy of the packed masks to the host, then run the native CCL of each
-    recording in a host thread (the C++ labelling releases the GIL)."""
+    copy of the mask words to the host, then run the native CCL of each
+    recording's words in a host thread (the C++ labelling releases the GIL)."""
     host, copied, width, n_valid, sr, hop_length, n_fft = handle
     with span("detect.wait"):
         if copied is not None:
             copied.synchronize()
-        found, flat_sec, packed = (x.numpy() for x in host)
+        found, flat_sec, words = (x.numpy() for x in host)
     b = len(n_valid)
 
     def one(i):
-        stats = connected_components_with_stats_packed(packed[i], width)
+        stats = connected_components_with_stats_packed(words[i], width)
         return _signals_from_stats(stats, sr, hop_length, n_fft)
 
     with span("detect.ccl"), ThreadPoolExecutor(max_workers=max(1, min(8, b))) as ex:

@@ -237,63 +237,6 @@ def rms(x: np.ndarray) -> float:
     return float(np.sqrt(x.dot(x) / x.size))
 
 
-def bytesio_from_audio(sample_rate, source_left, source_right=None):
-    """In-memory 16-bit WAV (reference: src/common.py:99-120)."""
-    import io
-    import wave
-
-    bio = io.BytesIO()
-    w = wave.open(bio, "wb")
-    w.setsampwidth(2)
-    w.setframerate(sample_rate)
-    if source_right is None:
-        w.setnchannels(1)
-        source = np.asarray(source_left)
-    else:
-        w.setnchannels(2)
-        source = np.stack((source_left, source_right), axis=1)
-    data = np.clip(32768 * source, -32768, 32767).astype("<h")
-    w.writeframesraw(data.tobytes())
-    w.close()
-    bio.seek(0)
-    return bio
-
-
-def write_audio_to_file(file_name, sample_rate, source_left, source_right=None):
-    """Write mp3/ogg/opus via ffmpeg/opusenc when available, else raw WAV
-    (reference: src/common.py:131-161). Encoded formats require the
-    corresponding binary on PATH."""
-    file_name = str(file_name)
-    if file_name.endswith(".ogg") and source_right is None:
-        source_right = source_left  # ffmpeg vorbis is stereo-only
-    bio = bytesio_from_audio(sample_rate, source_left, source_right)
-
-    command = None
-    if file_name.endswith(".mp3"):
-        command = ["ffmpeg", "-y", "-i", "-", "-c:a", "libmp3lame", file_name]
-    elif file_name.endswith(".ogg"):
-        command = ["ffmpeg", "-y", "-i", "-", "-c:a", "vorbis", "-strict", "-2", file_name]
-    elif file_name.endswith(".opus"):
-        command = ["opusenc", "-", file_name]
-
-    if command:
-        binary = command[0]
-        if not shutil.which(binary):
-            raise ValueError(
-                f"writing {file_name} needs {binary}, which is not on PATH"
-            )
-        p = subprocess.Popen(
-            command,
-            stdin=subprocess.PIPE,
-            stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE,
-        )
-        p.communicate(input=bio.read())
-    else:
-        with open(file_name, "wb") as f:
-            f.write(bio.read())
-
-
 def write_wav(path, data: np.ndarray, sample_rate: int):
     """Write mono/stereo float32 [-1,1] as 16-bit PCM WAV (native, no deps).
     Mirrors the writer side of reference src/common.py:99-120."""

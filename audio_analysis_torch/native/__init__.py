@@ -86,29 +86,15 @@ def _wrapper(stem: str, cls):
 
 
 class _CclLib:
+    """ctypes wrapper for ccl.cpp (the labelling of the packed mask)."""
+
     def __init__(self, dll):
-        mask2d = np.ctypeslib.ndpointer(dtype=np.uint8, ndim=2, flags="C_CONTIGUOUS")
+        words = np.ctypeslib.ndpointer(dtype=np.uint32, ndim=2, flags="C_CONTIGUOUS")
         out2d = np.ctypeslib.ndpointer(dtype=np.int64, ndim=2, flags="C_CONTIGUOUS")
         i64 = ctypes.c_int64
-        self._fn = dll.ccl_stats
-        self._fn.restype = i64
-        self._fn.argtypes = [mask2d, i64, i64, out2d]
-        self._fn_packed = dll.ccl_stats_packed
-        self._fn_packed.restype = i64
-        self._fn_packed.argtypes = [mask2d, i64, i64, i64, out2d]
-        self._fn_runs = dll.ccl_stats_runs
-        self._fn_runs.restype = i64
-        runs = np.ctypeslib.ndpointer(dtype=np.int32, ndim=1, flags="C_CONTIGUOUS")
-        self._fn_runs.argtypes = [runs, runs, i64, i64, i64, out2d]
-
-    def ccl_stats(self, mask, h, w, out):
-        return self._fn(mask, h, w, out)
-
-    def ccl_stats_packed(self, packed, h, w, w_bytes, out):
-        return self._fn_packed(packed, h, w, w_bytes, out)
-
-    def ccl_stats_runs(self, starts, ends, n_runs, h, w, out):
-        return self._fn_runs(starts, ends, n_runs, h, w, out)
+        self.ccl_stats_words = dll.ccl_stats_words
+        self.ccl_stats_words.restype = i64
+        self.ccl_stats_words.argtypes = [words, i64, i64, i64, out2d]
 
 
 def load_ccl_library():

@@ -4,8 +4,11 @@
 // (reference: src/identify_tracks.py:686-691).
 //
 // Exposed via a C ABI for ctypes:
-//   int64 ccl_stats(const uint8* mask, int64 h, int64 w, int64* out /*[n,5]*/)
-// Returns the number of components; out rows are (x, y, w, h, area),
+//   int64 ccl_stats_words(const uint32* words, int64 h, int64 w,
+//                         int64 words_per_row, int64* out /*[n,5]*/)
+// over the device's bit-packed mask: each row `words_per_row` words, bit 31
+// of word j the column 32 j (most significant bit first), `w` the logical
+// width. Returns the number of components; out rows are (x, y, w, h, area),
 // background excluded, in ascending root order (caller sorts as needed).
 
 #include <cstdint>
@@ -42,135 +45,7 @@ struct UnionFind {
   }
 };
 
-}  // namespace
-
-namespace {
-
-// Shared second phase: union runs across rows, aggregate stats.
-int64_t finish_ccl(std::vector<Run>& runs, std::vector<int64_t>& row_first,
-                   int64_t h, int64_t* out);
-
-}  // namespace
-
-extern "C" int64_t ccl_stats(const uint8_t* mask, int64_t h, int64_t w,
-                             int64_t* out) {
-  std::vector<Run> runs;
-  runs.reserve(1024);
-  std::vector<int64_t> row_first(h + 1, -1);  // index of first run per row
-
-  for (int64_t y = 0; y < h; ++y) {
-    const uint8_t* row = mask + y * w;
-    int64_t x = 0;
-    while (x < w) {
-      while (x < w && !row[x]) ++x;
-      if (x >= w) break;
-      int64_t s = x;
-      while (x < w && row[x]) ++x;
-      if (row_first[y] < 0) row_first[y] = static_cast<int64_t>(runs.size());
-      runs.push_back({y, s, x});
-    }
-    row_first[y + 1] = static_cast<int64_t>(runs.size());
-  }
-  return finish_ccl(runs, row_first, h, out);
-}
-
-// Bit-packed variant: mask rows are packed 8 pixels/byte, MSB first
-// (np.packbits layout); `w` is the logical pixel width, `w_bytes` the row
-// stride. Avoids a host-side unpack of the ~21 MB mask per recording.
-extern "C" int64_t ccl_stats_packed(const uint8_t* packed, int64_t h,
-                                    int64_t w, int64_t w_bytes, int64_t* out) {
-  std::vector<Run> runs;
-  runs.reserve(1024);
-  std::vector<int64_t> row_first(h + 1, -1);
-
-  for (int64_t y = 0; y < h; ++y) {
-    const uint8_t* row = packed + y * w_bytes;
-    int64_t run_start = -1;
-    int64_t x = 0;
-    for (int64_t b = 0; b < w_bytes; ++b) {
-      uint8_t byte = row[b];
-      if (byte == 0) {
-        if (run_start >= 0) {
-          if (row_first[y] < 0) row_first[y] = static_cast<int64_t>(runs.size());
-          runs.push_back({y, run_start, x});
-          run_start = -1;
-        }
-        x += 8;
-        continue;
-      }
-      if (byte == 0xFF) {
-        if (run_start < 0) run_start = x;
-        x += 8;
-        continue;
-      }
-      for (int bit = 7; bit >= 0; --bit, ++x) {
-        bool on = (byte >> bit) & 1;
-        if (on && run_start < 0) {
-          run_start = x;
-        } else if (!on && run_start >= 0) {
-          if (row_first[y] < 0) row_first[y] = static_cast<int64_t>(runs.size());
-          runs.push_back({y, run_start, x});
-          run_start = -1;
-        }
-      }
-    }
-    if (run_start >= 0) {
-      int64_t end = std::min(x, w);
-      if (run_start < w) {
-        if (row_first[y] < 0) row_first[y] = static_cast<int64_t>(runs.size());
-        runs.push_back({y, run_start, end});
-      }
-      run_start = -1;
-    } else if (!runs.empty() && runs.back().row == y && runs.back().end > w) {
-      runs.back().end = w;  // clamp trailing pad bits
-    }
-    // clamp any run that spilled into pad bits
-    row_first[y + 1] = static_cast<int64_t>(runs.size());
-  }
-  // Clamp run ends to the logical width and DROP runs living entirely in
-  // pad bits (end <= start after the clamp): finish_ccl has no degenerate
-  // filter, so without this a non-zero-padding producer would get spurious
-  // zero-area components. row_first is rebuilt over the compacted list.
-  std::vector<Run> kept;
-  kept.reserve(runs.size());
-  std::fill(row_first.begin(), row_first.end(), static_cast<int64_t>(-1));
-  for (auto& r : runs) {
-    if (r.end > w) r.end = w;
-    if (r.start >= r.end) continue;
-    if (row_first[r.row] < 0) row_first[r.row] = static_cast<int64_t>(kept.size());
-    kept.push_back(r);
-  }
-  row_first[h] = static_cast<int64_t>(kept.size());
-  return finish_ccl(kept, row_first, h, out);
-}
-
-// Run-list variant: the device already extracted horizontal runs (see
-// detect/signal_noise._runs_from_packed_program) so only ~KBs cross the wire instead of
-// the ~2.6 MB packed mask. starts/ends are flat row-major indices
-// (row*w + col, end exclusive within the row), sorted ascending (the
-// device nonzero order), n_runs of them; entries beyond n_runs ignored.
-extern "C" int64_t ccl_stats_runs(const int32_t* starts, const int32_t* ends,
-                                  int64_t n_runs, int64_t h, int64_t w,
-                                  int64_t* out) {
-  std::vector<Run> runs;
-  runs.reserve(static_cast<size_t>(n_runs));
-  std::vector<int64_t> row_first(h + 1, -1);
-  for (int64_t i = 0; i < n_runs; ++i) {
-    const int64_t s = starts[i];
-    const int64_t e = ends[i];  // flat index of the run's LAST pixel
-    const int64_t y = s / w;
-    const int64_t x0 = s - y * w;
-    const int64_t x1 = e - y * w + 1;  // exclusive
-    if (y < 0 || y >= h || x1 <= x0 || x1 > w) continue;
-    if (row_first[y] < 0) row_first[y] = static_cast<int64_t>(runs.size());
-    runs.push_back({y, x0, x1});
-  }
-  row_first[h] = static_cast<int64_t>(runs.size());
-  return finish_ccl(runs, row_first, h, out);
-}
-
-namespace {
-
+// Union runs across rows, aggregate stats.
 int64_t finish_ccl(std::vector<Run>& runs, std::vector<int64_t>& row_first,
                    int64_t h, int64_t* out) {
   // normalise row_first: rows with no runs point at the next row's start
@@ -231,3 +106,50 @@ int64_t finish_ccl(std::vector<Run>& runs, std::vector<int64_t>& row_first,
 }
 
 }  // namespace
+
+// Reads the packed mask as it comes from the device, with no host unpack of
+// the ~21 MB mask per recording. Runs are clamped to the logical width and
+// runs wholly in pad bits dropped, so a producer that leaves its pad bits set
+// gets no spurious zero-area components (finish_ccl has no such filter).
+extern "C" int64_t ccl_stats_words(const uint32_t* words, int64_t h, int64_t w,
+                                   int64_t words_per_row, int64_t* out) {
+  std::vector<Run> runs;
+  runs.reserve(1024);
+  std::vector<int64_t> row_first(h + 1, -1);  // index of first run per row
+
+  for (int64_t y = 0; y < h; ++y) {
+    const uint32_t* row = words + y * words_per_row;
+    int64_t run_start = -1;
+    auto close = [&](int64_t end) {  // the open run ends before `end`
+      end = std::min(end, w);
+      if (run_start < end) {
+        if (row_first[y] < 0) row_first[y] = static_cast<int64_t>(runs.size());
+        runs.push_back({y, run_start, end});
+      }
+      run_start = -1;
+    };
+    for (int64_t j = 0; j < words_per_row; ++j) {
+      const uint32_t word = row[j];
+      const int64_t x = 32 * j;
+      if (word == 0) {
+        if (run_start >= 0) close(x);
+        continue;
+      }
+      if (word == 0xFFFFFFFFu) {
+        if (run_start < 0) run_start = x;
+        continue;
+      }
+      for (int bit = 31; bit >= 0; --bit) {
+        const bool on = (word >> bit) & 1u;
+        if (on && run_start < 0) {
+          run_start = x + 31 - bit;
+        } else if (!on && run_start >= 0) {
+          close(x + 31 - bit);
+        }
+      }
+    }
+    if (run_start >= 0) close(32 * words_per_row);
+  }
+  row_first[h] = static_cast<int64_t>(runs.size());
+  return finish_ccl(runs, row_first, h, out);
+}

@@ -2,8 +2,8 @@
 
 TPU-native replacement for ``cv2.connectedComponentsWithStats``
 (reference: src/identify_tracks.py:686-691). Labelling is an inherently
-sequential union-find, so it runs on host over the (small, binary) mask that
-the on-device morphology produces. Two implementations:
+sequential union-find, so it runs on host over the bit-packed mask that the
+on-device morphology produces. Two implementations:
 
 - a native C++ run-based union-find (audio_analysis_torch/native/ccl.cpp),
   loaded via ctypes — the production path;
@@ -112,61 +112,22 @@ def _ccl_from_runs(rows, starts, ends) -> np.ndarray:
     return stats
 
 
-def connected_components_with_stats(mask: np.ndarray) -> np.ndarray:
+def connected_components_with_stats_packed(words: np.ndarray, width: int) -> np.ndarray:
     """8-connected component stats ``[n, 5] = (x, y, w, h, area)``,
-    background excluded. Uses the native C++ op when available."""
-    mask = np.ascontiguousarray(np.asarray(mask) != 0, dtype=np.uint8)
-    lib = load_ccl_library()
-    if lib is not None:
-        h, w = mask.shape
-        max_comp = h * w // 2 + 1
-        out = np.zeros((max_comp, 5), dtype=np.int64)
-        n = lib.ccl_stats(mask, h, w, out)
-        return out[:n]
-    return _connected_components_numpy(mask)
-
-
-def connected_components_with_stats_packed(packed: np.ndarray, width: int) -> np.ndarray:
-    """Same, over a bit-packed mask: consumes the device's packed detection
-    mask directly, skipping a ~200 ms host unpack per 60 s recording.
-
-    Accepts uint8 bytes (np.packbits layout) or int32 words (MSB-first; the
-    device packs int32 because those transfer ~2x faster on this backend) —
-    int32 words big-endian-viewed ARE the MSB-first byte stream."""
-    packed = np.asarray(packed)
-    if packed.dtype != np.uint8:
-        packed = np.ascontiguousarray(packed).astype(">i4")
-        packed = np.ascontiguousarray(packed).view(np.uint8).reshape(packed.shape[0], -1)
-    packed = np.ascontiguousarray(packed, dtype=np.uint8)
-    h, w_bytes = packed.shape
+    background excluded, of the device's packed detection mask: `words`
+    [h, ceil(width/32)] int32 (or uint32), bit 31 of word j the column
+    32 j, bits from `width` on ignored. Uses the native C++ op when
+    available, else unpacks and labels in numpy."""
+    words = np.ascontiguousarray(words)
+    if words.dtype not in (np.int32, np.uint32):
+        raise TypeError(f"the mask words must be native 32-bit integers, not {words.dtype}")
+    words = words.view(np.uint32)
+    h, words_per_row = words.shape
     lib = load_ccl_library()
     if lib is not None:
         max_comp = h * width // 2 + 2
         out = np.zeros((max_comp, 5), dtype=np.int64)
-        n = lib.ccl_stats_packed(packed, h, int(width), w_bytes, out)
+        n = lib.ccl_stats_words(words, h, int(width), words_per_row, out)
         return out[:n]
-    mask = np.unpackbits(packed, axis=1)[:, :width] > 0
-    return _connected_components_numpy(mask)
-
-
-def connected_components_with_stats_runs(
-    starts: np.ndarray, ends: np.ndarray, n_runs: int, h: int, w: int
-) -> np.ndarray:
-    """Same stats, from device-extracted horizontal runs: `starts`/`ends`
-    are flat row-major pixel indices of each run's first/LAST on-pixel,
-    ascending (the device nonzero order; see detect.signal_noise._runs_from_packed_program).
-    Only ~n_runs*8 bytes cross the wire instead of the packed mask."""
-    n_runs = int(n_runs)
-    starts = np.ascontiguousarray(starts[:n_runs], dtype=np.int32)
-    ends = np.ascontiguousarray(ends[:n_runs], dtype=np.int32)
-    lib = load_ccl_library()
-    if lib is not None and getattr(lib, "_fn_runs", None) is not None:
-        out = np.zeros((n_runs + 1, 5), dtype=np.int64)
-        n = lib.ccl_stats_runs(starts, ends, n_runs, int(h), int(w), out)
-        return out[:n]
-    rows = starts.astype(np.int64) // w
-    return _ccl_from_runs(
-        rows,
-        starts.astype(np.int64) - rows * w,
-        ends.astype(np.int64) - rows * w + 1,
-    )
+    big_endian = words.astype(">u4").view(np.uint8).reshape(h, -1)
+    return _connected_components_numpy(np.unpackbits(big_endian, axis=1)[:, :width] > 0)

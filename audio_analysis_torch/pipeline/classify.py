@@ -218,6 +218,30 @@ def run_embeddings_group(models, cfg: ModelConfig, embedder, frames, sr, tracks)
     apply_thresholds(tracks, track_probs, np.asarray(counts), cfg)
 
 
+def sidecar_tracks(meta_data):
+    """The tracks a sidecar lists under "Tracks", as Signals with their ids
+    (reference --analyse-tracks, src/identify_tracks.py:422-433). A sidecar
+    without the key raises KeyError, as in the reference (:425)."""
+    tracks = []
+    for t in meta_data["Tracks"]:
+        signal = Signal(t["start"], t["end"], t.get("minFreq", 0), t.get("maxFreq", MAX_FREQUENCY))
+        signal.track_id = t["id"]
+        tracks.append(signal)
+    return tracks
+
+
+def model_groups(models):
+    """The model files with their configs, in groups: the main ensemble
+    group, then the pre-filter models, which run after it (reference
+    src/identify_tracks.py:444-455); an empty group is left out. Returns
+    [[(model_file, ModelConfig), ...], ...]."""
+    mean_models, pre_models = [], []
+    for model_file in models:
+        cfg = ModelConfig.load(Path(model_file))
+        (pre_models if cfg.pre_model else mean_models).append((model_file, cfg))
+    return [g for g in (mean_models, pre_models) if g]
+
+
 def classify(file, models, analyse_tracks, meta_data=None, rng=np.random, timer=None,
              device=None):
     """Reference-compatible entry: returns
@@ -253,40 +277,21 @@ def classify_frames(frames, sr, models, analyse_tracks, meta_data=None, rng=np.r
     if analyse_tracks:
         if meta_data is None:
             return None
-        tracks = []
-        for t in meta_data["Tracks"]:
-            signal = Signal(
-                t["start"], t["end"], t.get("minFreq", 0), t.get("maxFreq", MAX_FREQUENCY)
-            )
-            signal.track_id = t["id"]
-            tracks.append(signal)
+        tracks = sidecar_tracks(meta_data)
     else:
         tracks = [s.copy() for s in signals]
         tracks = get_tracks_from_signals(tracks, length)
     if len(tracks) == 0:
         return [], length, [], raw_length, []
 
-    # group models: pre-filter models run after the main ensemble group
-    # (reference :444-455)
-    pre_models, mean_models = [], []
     with span("models"):
-        for model_file in models:
-            cfg = ModelConfig.load(Path(model_file))
-            if cfg.pre_model:
-                pre_models.append((model_file, cfg))
-            else:
-                mean_models.append((model_file, cfg))
-    grouped_models = [mean_models]
-    if pre_models:
-        grouped_models.append(pre_models)
+        grouped_models = model_groups(models)
 
     track_data = None  # (plan, has_windows) shared across groups like the reference
     feats_cache = None  # the first group's features, reused verbatim
     bird_labels = set()
 
     for model_group in grouped_models:
-        if not model_group:
-            continue
         if len(model_group) > 1:
             logging.info("Meaning predictions as have multiple models")
         with span("models"):

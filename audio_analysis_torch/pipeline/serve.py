@@ -5,7 +5,7 @@ recordings at a time:
 
 1. the recordings, stacked [B, T_bucket] in pinned host memory, go to the
    device in one queued copy, and one batched detection is queued
-   (end-scan, |STFT|, medians, masks packed to bits and copied back to
+   (end-scan, |STFT|, medians, masks packed to words and copied back to
    pinned memory: ``detect_batch_dispatch``); nothing here waits for the
    device;
 2. host (``_queue``): wait for the packed masks, the CCL of each
@@ -76,10 +76,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from audio_analysis_torch.detect.signal import MAX_FREQUENCY, Signal, get_tracks_from_signals
+from audio_analysis_torch.detect.signal import get_tracks_from_signals
 from audio_analysis_torch.detect.signal_noise import detect_batch_dispatch, detect_batch_finish
 from audio_analysis_torch.device import resolve_device, to_device_async, to_host_async
-from audio_analysis_torch.io.modelconfig import NON_BIRD, ModelConfig
 from audio_analysis_torch.io.pcmcodec import (
     BLOCK,
     encode_pcm,
@@ -87,23 +86,18 @@ from audio_analysis_torch.io.pcmcodec import (
     wire_codec_enabled,
 )
 from audio_analysis_torch.models.registry import load_classifier
-from audio_analysis_torch.pipeline.analysis import SPECIES_IDENTIFY_VERSION
-from audio_analysis_torch.pipeline.cacophony import (
-    calc_cacophony_index,
-    filter_tracks,
-    get_chirps,
-    get_max_chirps,
-)
+from audio_analysis_torch.pipeline.analysis import recording_result
 from audio_analysis_torch.pipeline.classify import (
     apply_thresholds,
     features_for_config,
     filter_windows,
     float_pcm,
+    model_groups,
     plan_for_config,
     run_embeddings_group,
     run_group,
+    sidecar_tracks,
 )
-from audio_analysis_torch.pipeline.ebird import filter_by_location
 from audio_analysis_torch.pipeline.embeddings import load_embedder
 from audio_analysis_torch.pipeline.frontend import frontend_level
 from audio_analysis_torch.pipeline.samples import WindowPlan, gather_windows, pad_plan_to_bucket
@@ -136,14 +130,8 @@ class BatchAnalyzer:
         self.sr = int(sr)
         self.bucket = int(bucket_seconds * sr)
         self.rng = rng
-        # pre-filter models run after the main ensemble group (reference
-        # src/identify_tracks.py:444-455)
-        mean_models, pre_models = [], []
-        for model_file in models:
-            cfg = ModelConfig.load(Path(model_file))
-            entry = (load_classifier(Path(model_file), cfg, self.device), cfg)
-            (pre_models if cfg.pre_model else mean_models).append(entry)
-        self.groups = [g for g in (mean_models, pre_models) if g]
+        self.groups = [[(load_classifier(Path(mf), cfg, self.device), cfg) for mf, cfg in group]
+                       for group in model_groups(models)]
         self._embedders = {}
 
     # -- public -------------------------------------------------------------
@@ -393,16 +381,7 @@ class BatchAnalyzer:
             with timer.stage("plan"):
                 for b in range(b_count):
                     md = meta_data[b] if meta_data is not None else None
-                    tracks = []
-                    if md is not None:
-                        # md["Tracks"] unguarded on purpose: a sidecar without
-                        # the key raises KeyError, like the single path and
-                        # the reference (src/identify_tracks.py:425)
-                        for t in md["Tracks"]:
-                            s = Signal(t["start"], t["end"], t.get("minFreq", 0),
-                                       t.get("maxFreq", MAX_FREQUENCY))
-                            s.track_id = t["id"]
-                            tracks.append(s)
+                    tracks = sidecar_tracks(md) if md is not None else []
                     per_rec_tracks.append((int(n_valid[b]) / sr, [], tracks))
                     if cfg0 is not None:
                         plans.append(plan_for_config(n_valid[b], sr, tracks, cfg0, rng=rng))
@@ -515,48 +494,15 @@ class BatchAnalyzer:
         return self._gather(results, timer) if self._multihost else results
 
     def _post(self, per_rec_tracks, n_valid, sr, meta_data=None, analyse_tracks=False):
-        """Host post-processing per recording (pipeline/analysis.py's
-        result assembly)."""
-        bird_labels = set()
-        for group in self.groups:
-            for _, cfg in group:
-                bird_labels.update(cfg.bird_labels)
-        results = []
-        for b, (length, signals, tracks) in enumerate(per_rec_tracks):
-            # location metadata -> eBird filtering BEFORE master tags, as on
-            # the single path (pipeline/analysis.py)
-            if meta_data is not None and meta_data[b] is not None:
-                filter_by_location(meta_data[b], tracks)
-            for t in tracks:
-                t.set_master_tag()
-            if analyse_tracks:
-                # per-track labels only (reference analyse.py:157-171 is
-                # gated on not analyse_tracks)
-                results.append({
-                    "non_bird_tags": NON_BIRD,
-                    "species_identify": [t.get_meta() for t in tracks],
-                    "species_identify_version": SPECIES_IDENTIFY_VERSION,
-                })
-                continue
-            rec_signals = [s.to_array() for s in signals]  # get_chirps consumes signals
-            chirps = get_chirps(tracks, list(bird_labels), signals)
-            cacophony_index, _ = calc_cacophony_index(filter_tracks(tracks), length)
-            max_chirps = get_max_chirps(length)
-            results.append({
-                "duration": int(n_valid[b]) / sr,
-                "cacophony_index": cacophony_index,
-                "cacophony_index_version": "2.0",
-                "chirps": {
-                    "chirps": chirps,
-                    "max_chirps": max_chirps,
-                    "chirp_index": 0 if max_chirps == 0 else round(100 * chirps / max_chirps),
-                    "signals": rec_signals,
-                },
-                "non_bird_tags": NON_BIRD,
-                "species_identify": [t.get_meta() for t in tracks],
-                "species_identify_version": SPECIES_IDENTIFY_VERSION,
-            })
-        return results
+        """Each recording's result (``analysis.recording_result``), with
+        the bird labels of every group."""
+        bird_labels = {label for group in self.groups for _, cfg in group
+                       for label in cfg.bird_labels}
+        return [
+            recording_result(tracks, signals, length, int(n_valid[b]) / sr, bird_labels,
+                             meta_data[b] if meta_data is not None else None, analyse_tracks)
+            for b, (length, signals, tracks) in enumerate(per_rec_tracks)
+        ]
 
     # -- internals ----------------------------------------------------------
 

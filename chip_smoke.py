@@ -1419,7 +1419,7 @@ def check_packed_morphology(path, spec, nvf):
     """The detection mask tail on a path's own normalised spectrogram `spec`
     [B, bins, T] and valid frames `nvf`: the packed-word morphology on the
     card bit for bit against the float max-pool plain version (both as
-    np.packbits bytes), with the device ms of each (CUDA events), the host's
+    packed int32 words), with the device ms of each (CUDA events), the host's
     time to enqueue the packed path (median of 5 calls, each from an idle
     card), and its device kernels (torch.profiler). Returns the
     measurement."""
@@ -1432,12 +1432,12 @@ def check_packed_morphology(path, spec, nvf):
     col_valid = torch.arange(spec.shape[-1], device=spec.device)[None, :] < nvf[:, None]
     kw = dict(sr=SR, hop_length=281, n_fft=4096)
     args = (spec, row_m, col_m, col_valid)
-    packed = sn.words_to_bytes(sn._mask_threshold_morph(*args, **kw), spec.shape[-1])
-    plain = sn.pack_bits(sn.mask_threshold_morph_plain(*args, **kw))
+    packed = sn._mask_threshold_morph(*args, **kw)
+    plain = sn.pack_words(sn.mask_threshold_morph_plain(*args, **kw))
     torch.cuda.synchronize()
     differ = int((packed != plain).sum())
-    m = dict(path=path, shape=list(spec.shape), set_bytes=int((packed != 0).sum()),
-             differing_bytes=differ,
+    m = dict(path=path, shape=list(spec.shape), set_words=int((packed != 0).sum()),
+             differing_words=differ,
              ms=time_ms(lambda: sn._mask_threshold_morph(*args, **kw), 5),
              plain_ms=time_ms(lambda: sn.mask_threshold_morph_plain(*args, **kw), 3))
     enqueue = []
@@ -1451,9 +1451,9 @@ def check_packed_morphology(path, spec, nvf):
     m.update(device_kernels=prof["device_kernels"], device_busy_ms=prof["device_busy_ms"],
              profiled_wall_ms=prof["profiled_wall_ms"], max_pool_kernels=prof["max_pool_kernels"])
     log(json.dumps({"packed_morphology": m}))
-    if differ or not m["set_bytes"]:
-        raise AssertionError(f"packed morphology ({path}): {differ} bytes differ from the float "
-                             f"max-pool version ({m['set_bytes']} set)")
+    if differ or not m["set_words"]:
+        raise AssertionError(f"packed morphology ({path}): {differ} words differ from the float "
+                             f"max-pool version ({m['set_words']} set)")
     return m
 
 

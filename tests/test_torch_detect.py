@@ -114,6 +114,9 @@ def test_endscan_decision_matches_jax(rng):
 
 
 def test_pack_bits_is_np_packbits(rng):
+    """``pack_words`` is np.packbits' bytes read as big-endian int32 words,
+    the last word's pad bits zero."""
     m = rng.rand(7, 43) < 0.4
-    np.testing.assert_array_equal(tsn.pack_bits(torch.from_numpy(m)).numpy(),
-                                  np.packbits(m, axis=1))
+    packed = np.packbits(m, axis=1)
+    ref = np.pad(packed, ((0, 0), (0, -packed.shape[1] % 4))).view(">i4")
+    np.testing.assert_array_equal(tsn.pack_words(torch.from_numpy(m)).numpy(), ref)
